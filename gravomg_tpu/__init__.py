@@ -1,6 +1,6 @@
-"""gravomg_tpu: a TPU-native geometric multigrid framework.
+"""gravomg_tpu: a geometric multigrid framework in JAX.
 
-A ground-up JAX/Pallas rebuild of the capabilities of
+A ground-up JAX rebuild of the capabilities of
 `JacksonCampolattaro/gravo-mg` (hierarchy construction for Gravo MG,
 SIGGRAPH 2023) plus the solver stack the method drives (V-cycles,
 weighted-Jacobi/Chebyshev smoothing, Galerkin RAP, MG-preconditioned CG,

@@ -37,8 +37,8 @@ def refit_hierarchy(h, new_fine_op: EllOperator,
 
     ``h`` is a :class:`SolverHierarchy` (preferred -- pass the
     COMPACTED solver so the RAP chain runs on tight shapes and the
-    multi-GB uncompacted build hierarchy need not stay resident; the
-    round-3 170k config crashed the 16 GB TPU worker keeping both) or
+    multi-GB uncompacted build hierarchy need not stay resident; at
+    170k keeping both ran a 16 GB device out of memory) or
     a full :class:`Hierarchy` (its solver stack is used).
     """
     hs = h.solver if isinstance(h, Hierarchy) else h
@@ -93,9 +93,7 @@ def heat_geodesics(graph: Graph, h, source: int,
     delta = delta.at[source].set(1.0)
     # MG-PCG, not the stationary solve: f32 stationary cycles stall at
     # ~4e-5 relative residual, so a 1e-8 tolerance exhausts max_cycles
-    # inside ONE while_loop launch -- minutes of plain-ELL V-cycles that
-    # the device watchdog kills (the round-3/4 c3 170k worker crash,
-    # attributed by scripts/repro_c3.py).  PCG exits in ~10 iterations.
+    # inside ONE while_loop launch.  PCG exits in ~10 iterations.
     from gravomg_tpu.solve.cg import mg_pcg
     u, _, _ = mg_pcg(sh, mass * delta, cfg)
 
@@ -112,7 +110,7 @@ def heat_geodesics(graph: Graph, h, source: int,
     # screened_poisson_operator(alpha="auto"): a FIXED eps*mass falls
     # below f32 resolution of the ~1/h invdist diagonal as the mesh
     # densifies (measured: 1e-6*mass at 170k -> indefinite RAP chain,
-    # PCG NaN -- scripts/repro_c3.py), while 1e-4 of the mean diagonal
+    # PCG NaN), while 1e-4 of the mean diagonal
     # stays ~1e2 above f32 RAP noise at every level.
     eps = 1e-4 * jnp.mean(lap.diag) / jnp.mean(mass)
     pois_op = lap._replace(diag=lap.diag + eps * mass)

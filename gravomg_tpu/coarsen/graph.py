@@ -81,7 +81,8 @@ def _ece_local(graph: Graph, parents: jax.Array, fine_valid: jax.Array,
     # Child slots are consumed in groups and lane-merged into a running
     # (max_degree) accumulator: the one-shot (nc, mc*K) candidate
     # matrix was (423808, 1216) at 1M -- multi-GB sort transients that
-    # pushed the full build over HBM (RESOURCE_EXHAUSTED); grouped, the
+    # pushed the full build over device memory (RESOURCE_EXHAUSTED on a
+    # 16 GB device); grouped, the
     # widest sort is max_degree + ~256 lanes.  Distinct-count is
     # monotone, so per-step overflow == final overflow.
     gsz = max(1, 256 // k)

@@ -6,7 +6,7 @@ with distance 0 and parent = the sample's *coarse-side* index
 (`src/multigrid.cpp:89-93`), relaxing with Euclidean edge lengths
 recomputed from positions (`src/multigrid.cpp:107`).
 
-The TPU-native equivalent (SURVEY.md CS-3) is iterated masked gather-min
+The fixed-shape equivalent (SURVEY.md CS-3) is iterated masked gather-min
 relaxation (Bellman-Ford / label propagation) to a fixpoint: each sweep
 is one fixed-shape (V, K) gather + min-reduce, and convergence takes
 O(cell hop-diameter) sweeps -- small, since cells have radius on the

@@ -6,7 +6,7 @@ cell; a "lonely" cell containing only its seed additionally absorbs the
 seed's fine-graph neighbors into the average (`src/multigrid.cpp:183-191`,
 the reference's own `todo: is this actually helpful?`).
 
-TPU-native: one segment-sum / segment-count pass plus a masked fix-up for
+Fixed-shape form: one segment-sum / segment-count pass plus a masked fix-up for
 singleton cells (SURVEY.md §2.1-C8).  The reference's ``std::set`` dedup
 is a no-op for us: ELL neighbor rows hold distinct non-self entries, so
 the patched cell is exactly {seed} ∪ neighbors(seed).

@@ -1,4 +1,4 @@
-"""Coarse-node selection: fast disc sampling, TPU-native.
+"""Coarse-node selection: fast disc sampling as fixed-shape array code.
 
 Reference C4 ``fastDiscSample`` (`src/sampling.cpp:7-53`, decl
 `include/gravomg/sampling.h:14-18`) is a sequential greedy scan: visit
@@ -183,9 +183,8 @@ def _disc_round(nbr, m, d, radius: jax.Array, status: jax.Array,
     over pruned conflict tables.
 
     Used by :func:`fast_disc_sample_rounds`, which drives rounds from
-    Python: on runtimes that kill long-running device programs, the
-    fused while_loop variant's single launch (rounds x chunks) exceeds
-    the watchdog at large V, while per-round launches stay short.
+    Python: the fused while_loop variant is one launch of rounds x
+    chunks at large V, while per-round launches stay short.
     """
     new_status = _round_update(nbr, m, d, radius, status, chunk)
     return new_status, jnp.any(new_status == _UNDECIDED)
@@ -281,8 +280,8 @@ def fast_disc_sample_bd(graph: Graph, radius, k_prune: int | None = None,
                         large_v: int = 300_000):
     """Greedy disc sampling via the conflict operator: each lex-first-
     MIS round is two gather-free block-dense matvecs over indicator
-    vectors instead of a (V, Kr, Kr) re-gather (~7 ns per gathered
-    index on this runtime).  Bit-identical fixpoint.
+    vectors instead of a (V, Kr, Kr) re-gather.  Bit-identical
+    fixpoint.
 
     Returns (mask, invalid) where ``invalid`` is a deferred device-side
     bool: caps were too small and the result must not be used.
@@ -295,7 +294,7 @@ def fast_disc_sample_bd(graph: Graph, radius, k_prune: int | None = None,
         k_prune = graph.max_degree
     # Scale-adaptive geometry + bf16 indicator entries (0/1 exact in
     # bf16; the matvec accumulates in f32): the uniform wide windows
-    # would cost V * nww * 4 bytes of HBM at 1M (see
+    # would cost V * nww * 4 bytes of device memory at 1M (see
     # fast_disc_sample_priority).
     if v > large_v:
         window, nw, window0 = 128, 6, 512
@@ -366,11 +365,11 @@ def fast_disc_sample_priority(graph: Graph, radius, seed: int = 0,
     if k_prune is None:
         k_prune = graph.max_degree
     # Above ~300k vertices the uniform wide-window geometry stops
-    # fitting HBM (V * nww * 4 bytes: 6.1 GB per operator at 1M with
-    # w0=512, w=512, nw=3 -- the round-3 1M OOM).  Measured coverage at
+    # fitting a 16 GB device (V * nww * 4 bytes: 6.1 GB per operator at
+    # 1M with w0=512, w=512, nw=3).  Measured coverage at
     # 1M (scripts/probe_1m_spread.py): w0=512 + 5x128 windows covers
     # 96.4% of the 2-hop conflict entries at nww=1152; the rest ride
-    # the escape chute (~0.5 V entries, ~10 ns each per round).  The
+    # the escape chute (~0.5 V entries, gathered every round).  The
     # 2-hop relation is also wider than kc_cap=192 at this scale.
     if v > large_v:
         window, nw, window0 = 128, 6, 512
@@ -382,7 +381,8 @@ def fast_disc_sample_priority(graph: Graph, radius, seed: int = 0,
     # Escape fill measured at 0.88*V for the standard radius at 50k
     # (wide geometry) and 0.47*V at 1M (narrow) -- a 1*V cap was one
     # bad radius away from an invalid build; 2*V covers the swept
-    # reduction ratios (1.7*V at ratio 4.0) at ~10 ns/slot/round.
+    # reduction ratios (1.7*V at ratio 4.0); every slot costs a gather
+    # per round.
     cap = escape_cap or max(4096, 2 * v)
     # ONE min-plus operator serves both reductions (the round-2 design
     # carried a second indicator operator -- 2x the dominant memory):
@@ -404,7 +404,8 @@ def fast_disc_sample_priority(graph: Graph, radius, seed: int = 0,
     # int32 -> f32 BITCAST keeps them distinct for any V < 2^31: for
     # non-negative ints the IEEE-754 bit-pattern order equals float
     # order, and offsetting by 2^23 keeps every value a *normal* float
-    # (TPU flushes denormals to zero, which would collapse small ints).
+    # (devices may flush denormals to zero, which would collapse small
+    # ints).
     perm = jax.random.permutation(jax.random.PRNGKey(seed), v)
     pr = jax.lax.bitcast_convert_type(
         perm.astype(jnp.int32) + jnp.int32(2 ** 23), jnp.float32)

@@ -30,10 +30,10 @@ class MultigridConfig:
     post_smooth: int = 2
     jacobi_omega: float = 2.0 / 3.0
     chebyshev_degree: int = 4
-    # Swept at 50k (scripts/sweep_contraction.py, BENCH_r03 sweep):
-    # ratio 16 contracts at rho=0.135/cycle vs 0.251 at the old ratio 4
-    # (identical per-cycle work; VERDICT r2 task 6's <=0.25 target) and
-    # drops MG-PCG from 10 to 8 iterations.  The reduction-ratio
+    # Swept at 50k (scripts/sweep_contraction.py,
+    # SWEEP_contraction_50k.json): ratio 16 contracts at rho=0.135/cycle
+    # vs 0.251 at the old ratio 4 (identical per-cycle work) and drops
+    # MG-PCG from 10 to 8 iterations.  The reduction-ratio
     # hypothesis was refuted by the same sweep (rho 0.28 at 1.2x vs
     # 0.25 at 2x reduction).
     chebyshev_ratio: float = 16.0
@@ -46,21 +46,22 @@ class MultigridConfig:
     # --- outer iteration ---
     tolerance: float = 1e-8           # relative residual target (BASELINE)
     max_cycles: int = 200
-    # Above this many fine rows the default solve (solve.cg.mg_solve)
-    # preconditions flexible CG with a bf16-cast V-cycle: the window
-    # matrices are the dominant HBM stream and bf16 halves them.
-    # Measured at 1M (BENCH r3/r4): bf16-FCG 0.346 s vs f32-PCG
-    # 0.380 s to 1e-8; at 200k f32 still wins (more iters at small
-    # scale), hence a threshold rather than a global default.  FCG's
-    # Polak-Ribiere beta is what makes the rounded preconditioner
-    # convergent (fixed-beta PCG diverged under bf16, BENCH_r02).
-    bf16_threshold: int = 500_000
+    # At or above this many fine rows the default solve
+    # (solve.cg.mg_solve) preconditions flexible CG with a bf16-cast
+    # V-cycle (bf16 halves the window-matrix bytes; FCG's Polak-Ribiere
+    # beta is what keeps the rounded preconditioner convergent).  On an
+    # NVIDIA H100 80GB HBM3 at a 700 W power limit, at 1M rows, bf16-FCG
+    # took 0.1006 s (12 iterations) against 0.0858 s (9 iterations) for
+    # f32 MG-PCG (chip_smoke.py), so no measured size favours it: the
+    # default threshold is above any int32-indexed level, i.e. off.
+    # Pass a smaller value to opt in.
+    bf16_threshold: int = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildCaps:
     """Static-cap defaults for the device-resident builder -- the ONE
-    place they live (VERDICT r4: the rap_cap 128->64 halving landed in
+    place they live (a rap_cap 128->64 halving once landed in
     hierarchy_static.py alone, unvalidated at 1M, and broke the default
     north-star build).  `build_hierarchy_device` resolves its cap
     keyword defaults from `DEFAULT_CAPS`; tests/test_caps.py pins
@@ -69,12 +70,12 @@ class BuildCaps:
     re-validating fails CI rather than the end-of-round bench.
     """
     # Values sized from the measured 1M structural profile
-    # (scripts/diag_build1m.py on TPU, 2026-08-20: true Galerkin
-    # off-degree <= 46 across all transitions, worst large-level 40;
-    # y_req 18-27 handled by rap_y_width_for_level's tiering) with the
-    # greedy-hierarchy audit (scripts/check_caps.py) tracking the same
-    # profile.  The BENCH_r04 default-build failure was the y-width
-    # tier boundary, not rap_cap.
+    # (scripts/diag_build1m.py, scripts/diag_build1m_out.json: true
+    # Galerkin off-degree <= 46 across all transitions, worst
+    # large-level 40; y_req 18-27 handled by rap_y_width_for_level's
+    # tiering) with the greedy-hierarchy audit (scripts/check_caps.py)
+    # tracking the same profile.  An earlier default-build failure at
+    # 1M was the y-width tier boundary, not rap_cap.
     kc_cap: int = 48            # coarse adjacency degree cap
     assoc_factor: int = 2       # per-vertex triangle association pad
     tri_factor: int = 2         # triangle count cap (x coarse cap)

@@ -1,7 +1,7 @@
 """Spatial-hash kNN for large point clouds (BASELINE config 4 scale).
 
-The blocked brute-force kNN (geometry/knn.py) is O(V^2) -- excellent on
-the MXU up to ~10^5 points, infeasible at 10^6.  This module bins points
+The blocked brute-force kNN (geometry/knn.py) is O(V^2) -- fine up to
+~10^5 points, infeasible at 10^6.  This module bins points
 into a uniform grid (cell edge chosen from the surface sampling density)
 with one counting sort, then each point gathers candidates from its
 3x3x3 cell neighborhood and top-k's them -- all fixed-shape:
@@ -105,8 +105,8 @@ def grid_knn_graph_nosync(points_np: np.ndarray, k: int,
                           max_degree: int | None = None,
                           margin: float = 2.0):
     """Grid kNN with all sizing decisions made host-side from the NumPy
-    copy -- performs NO device-to-host transfer (the runtime here
-    permanently degrades dispatch after any D2H; see PROGRESS.md).
+    copy -- performs NO device-to-host transfer, so the build that
+    follows is enqueued without a host round trip.
 
     Uses a single conservatively-sized attempt (cell edge = ``margin``
     x the expected kth-neighbor distance); returns (Graph, shortfall)

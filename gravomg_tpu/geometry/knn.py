@@ -3,12 +3,18 @@
 The reference outsources graph construction to an external robust
 point-cloud Laplacian library (`test/main.cpp:68`,
 `test/CMakeLists.txt:35-40`); the library itself only consumes the
-resulting sparse "edge matrix" (SURVEY.md §0).  The TPU build provides
-graph construction natively: a blocked brute-force top-k that keeps the
-MXU busy (distances via the ||x||^2 + ||y||^2 - 2<x,y> expansion, i.e. a
-(B, 3) x (3, V) matmul per tile) with a running-top-k merge so memory
-stays O(B * tile), then a sort-based symmetrization into the padded ELL
-:class:`~gravomg_tpu.types.Graph` layout.
+resulting sparse "edge matrix" (SURVEY.md §0).  This package provides
+graph construction natively: a blocked brute-force top-k with a
+running-top-k merge so memory stays O(B * tile), then a sort-based
+symmetrization into the padded ELL :class:`~gravomg_tpu.types.Graph`
+layout.
+
+Squared distances are summed from coordinate differences, as in the grid
+kNN (geometry/gridknn.py), not from the ||x||^2 + ||y||^2 - 2<x,y>
+expansion: the expansion cancels to ~1e-7 * ||x||^2 absolute error,
+which flips near-ties of the k-th neighbour (4 rows of 20k torus points
+differed from exact f64 neighbours at relative gaps up to 9e-5, even in
+full f32), and its matmul is one TF32 may round.
 """
 
 from __future__ import annotations
@@ -39,20 +45,17 @@ def knn_indices(points: jax.Array, k: int, block: int = 1024,
     qpad = jnp.pad(p32, ((0, vpad - v), (0, 0)))
     tpad = _round_up(v, tile)
     cols = jnp.pad(p32, ((0, tpad - v), (0, 0)))
-    col_sq = jnp.sum(cols * cols, axis=1)
     n_tiles = tpad // tile
 
     def per_block(qblock_idx):
         q = jax.lax.dynamic_slice(qpad, (qblock_idx * block, 0), (block, 3))
-        q_sq = jnp.sum(q * q, axis=1, keepdims=True)
         q_ids = qblock_idx * block + jnp.arange(block, dtype=jnp.int32)
 
         def scan_tile(carry, t):
             best_d, best_i = carry
             c = jax.lax.dynamic_slice(cols, (t * tile, 0), (tile, 3))
-            csq = jax.lax.dynamic_slice(col_sq, (t * tile,), (tile,))
             ids = (t * tile + jnp.arange(tile)).astype(jnp.int32)
-            d2 = q_sq + csq[None, :] - 2.0 * (q @ c.T)
+            d2 = jnp.sum((q[:, None, :] - c[None, :, :]) ** 2, axis=-1)
             # Mask padding columns and the self column.
             bad = (ids[None, :] >= v) | (ids[None, :] == q_ids[:, None])
             d2 = jnp.where(bad, jnp.inf, d2)

@@ -4,7 +4,7 @@ The reference obtains its stiffness/mass matrices from an external
 point-cloud Laplacian library (`test/main.cpp:68`) and only consumes
 their sparsity as a distance graph (C2 `toEdgeDistanceMatrix`,
 `src/utility.cpp:50-56`).  The solver half of the build (SURVEY.md CS-5,
-BASELINE.json) needs the operators themselves, so the TPU build provides
+BASELINE.json) needs the operators themselves, so this package provides
 them natively: a weighted graph Laplacian for point clouds and a cotan
 Laplacian for triangle meshes, both emitted as
 :class:`~gravomg_tpu.types.EllOperator` (fixed-shape, mask-padded).

@@ -1,8 +1,8 @@
 """Vertex reordering for memory locality (Morton / Z-order).
 
 ELL SpMV gathers x[neighbors]; after Morton-ordering the vertices,
-neighbors lie nearby in memory, which improves gather locality on the
-VPU and shrinks the working set per row block.  A pure host-side
+neighbors lie nearby in memory, which improves gather locality and
+shrinks the working set per row block.  A pure host-side
 renumbering: applied once at graph construction, transparent to all
 downstream semantics except vertex numbering (the compat oracle must be
 fed the same ordering).

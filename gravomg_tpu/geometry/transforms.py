@@ -1,6 +1,6 @@
 """Mesh / point-cloud normalization.
 
-TPU-native equivalent of reference C1 ``GravoMG::scaleMesh``
+Equivalent of reference C1 ``GravoMG::scaleMesh``
 (`src/utility.cpp:8-48`, decl `include/gravomg/utility.h:20`).
 """
 

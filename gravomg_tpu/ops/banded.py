@@ -2,18 +2,11 @@
 
 Quarantined per docs/DESIGN.md §7: the shipped formats are
 ``ops/slab.py`` (large levels) and ``ops/blockdense.py`` (small
-levels).  This module is kept because its measurements (the 129-offset
-DIA sweep below) established the cost model those formats are built
-on, and its tests pin that the format still works.
+levels).  Kept, with its tests, until the per-level format choice
+settles (ROADMAP, Design 1).
 
-Original rationale: the TPU-native sparse matvec for spatially ordered
-graphs (BASELINE "blocked-ELL" north star).
-
-Why.  XLA's TPU gather costs ~7 ns per gathered *index* regardless of
-slice width (measured, scripts/profile_gather2.py), so the plain ELL
-SpMV -- V*K scalar gathers -- runs ~400x off memory speed-of-light
-(46 ms at 200k x 32).  Contiguous-shift reads, by contrast, run at HBM
-bandwidth (129-offset DIA sweep: 0.26 ms on the same data).  After a
+The idea: replace the V*K scalar gathers of the plain ELL SpMV with
+contiguous shifted reads wherever the index structure allows.  After a
 spatial (Morton) vertex ordering, ~80-93% of neighbor offsets fall in a
 narrow index band; the rest cluster into a handful of contiguous index
 intervals per small row block (curve folds).  This module therefore
@@ -23,10 +16,9 @@ splits  A = D + B + F + E:
   * B   in-band offdiagonals, |col-row| <= W: a (2W+1, V) diagonal
         sweep of shifted contiguous reads (bandwidth-bound, no gather);
   * F   far entries covered by up to NW per-block windows of width
-        WIN: one row-gather of (NBLK*NW) window slices (7ns/index on
-        ~25k indices is negligible) + per-entry one-hot resolution
-        against the 2(WIN+NW) candidates (pure VPU compares, no
-        gather);
+        WIN: one row-gather of (NBLK*NW) window slices (~25k
+        indices) + per-entry one-hot resolution against the
+        2(WIN+NW) candidates (compares, no gather);
   * E   escape chute for entries in neither (rare fold pile-ups):
         exact sorted-COO, one small gather + segment-sum.
 

@@ -1,12 +1,12 @@
 """Block-window dense SpMV: the gather-free sparse matvec.
 
-Cost model recap (scripts/profile_gather*.py, PROGRESS.md): on this TPU
-runtime an XLA gather costs ~7 ns per gathered index regardless of
-slice width, contiguous reads stream at HBM bandwidth, and any
-formulation that *builds* selection masks at runtime (one-hot compares)
-pays entries x window bytes of materialization.  The remaining winning
-move is to PRECOMPUTE the selection: store each row's sparse entries as
-a dense row over a small set of per-block column windows.
+The format was shaped by an accelerator on which every gathered index
+cost far more than a streamed byte: it PRECOMPUTES the selection,
+storing each row's sparse entries as a dense row over a small set of
+per-block column windows, so a matvec gathers one index per window
+instead of one per nonzero.  It pays for that in bytes (the windows are
+mostly zeros); chip_smoke.py's per-level table sets those bytes and
+times against the plain ELL product on the GPU.
 
 For a row block b (BLK consecutive rows after spatial ordering):
   * NW column windows of width WIN each; window 0 is anchored on the
@@ -20,7 +20,7 @@ For a row block b (BLK consecutive rows after spatial ordering):
 The matvec is then
   y = diag * x + einsum(M[b], gathered windows) + escape,
 one (NBLK*NW)-index slice-gather plus a dense batched GEMV that streams
-M at memory bandwidth -- no runtime index resolution at all.
+M -- no runtime index resolution at all.
 
 Also used rectangularly (prolongation U, restriction U^T): pass the
 source length explicitly; window 0 anchors at the scaled diagonal
@@ -103,10 +103,10 @@ def blockdense_from_ell(cols: jax.Array, vals: jax.Array,
     chute is too small (retry with larger nw / escape_cap).  One
     jittable pass; the dense M is built by a single scatter-add.
 
-    ``align`` (e.g. 128) floors every window start to that multiple:
-    required by the Pallas matvec kernel, whose VMEM lane slices must
-    be provably 128-aligned (Mosaic rejects arbitrary lane offsets).
-    Costs slightly more window coverage; semantics otherwise identical.
+    ``align`` (e.g. 128) floors every window start to that multiple,
+    which lets the matvec gather whole rows of a (NSEG, 128) view of x
+    (see :func:`_gather_windows`).  Costs slightly more window
+    coverage; semantics otherwise identical.
     """
     if window0 is None:
         window0 = window
@@ -173,7 +173,7 @@ def blockdense_from_ell(cols: jax.Array, vals: jax.Array,
     c_s = jnp.where(valid, cols, 0)
     # First-hit window assignment, looped over the (small) window count
     # with 2-D temps only: an (R, K, NW) tensor has a tiny minor dim
-    # that TPU tile padding inflates ~40x (OOM at bench scale).
+    # that tiled layouts can pad many-fold.
     row_blk = jnp.arange(r, dtype=jnp.int32) // block   # (R,)
     sel = jnp.full((r, k), -1, jnp.int32)
     pos = jnp.zeros((r, k), jnp.int32)
@@ -230,10 +230,9 @@ def trim_escape(op: BlockDenseOperator,
     """Host-level: slice the escape COO down to its actual fill
     (rounded up to ``align`` slots; sorted padding sits at the tail).
 
-    The jittable build pads the chute to a static ``escape_cap``; a
-    64k-slot chute costs ~0.7 ms of gather+segment-sum per matvec at
-    the measured ~10 ns/element regardless of fill, which dominated
-    the slab matvec (per-bucket caps summed to 655k slots carrying a
+    The jittable build pads the chute to a static ``escape_cap``, and
+    every slot costs a gather + segment-sum per matvec regardless of
+    fill (the slab's per-bucket caps summed to 655k slots carrying a
     few thousand entries).  Syncs one scalar -- call only from the
     host-interactive attach phase, never under jit.
     """
@@ -253,9 +252,8 @@ def _gather_windows(op: BlockDenseOperator, x: jax.Array) -> jax.Array:
     """(NBLK, 1, NWW) concatenated window contents of x.
 
     Aligned operators (align=128) gather ROWS of a (NSEG, 128) 2-D view
-    of x instead of vmapped 1-D dynamic slices: the row-gather form is
-    the one XLA TPU lowers at ~7.5 ns/row (measured, PROGRESS.md),
-    while the 1-D slice form degrades ~40x at small blocks."""
+    of x instead of vmapped 1-D dynamic slices: one index per 128
+    entries."""
     nblk, nw = op.win_start.shape
     win, win0 = op.window, op.window0
     if op.align == 128:
@@ -287,10 +285,9 @@ def blockdense_matvec(op: BlockDenseOperator, x: jax.Array) -> jax.Array:
     r = op.n_rows
     wins = _gather_windows(op, x).astype(op.m.dtype)
 
-    # Broadcast-multiply + lane reduce: measured ~3x faster than the
-    # equivalent batched dot_general at block=256 (the GEMV RHS is a
-    # vector, so the MXU path pads and stalls; the VPU streams M at
-    # memory bandwidth).
+    # Broadcast-multiply + lane reduce rather than a batched
+    # dot_general: the GEMV right-hand side is a vector, and this keeps
+    # the f32 sum exact (no TF32 passes).
     acc_dt = jnp.promote_types(op.m.dtype, jnp.float32)
     y = jnp.sum(op.m * wins, axis=2, dtype=acc_dt)      # (NBLK, BLK)
     y = y.reshape(-1)[:r].astype(x.dtype)
@@ -345,8 +342,8 @@ def blockdense_minplus(op: BlockDenseOperator, x: jax.Array) -> jax.Array:
     """Tropical matvec y[r] = min_k (w[r,k] + x[cols[r,k]]).
 
     Requires an operator built with combine="min" (+inf padding).  Used
-    for shortest-path relaxation sweeps (Bellman-Ford) where the plain
-    gather formulation pays ~7 ns per index per sweep.  The escape chute
+    for shortest-path relaxation sweeps (Bellman-Ford) in place of the
+    plain one-gather-per-entry formulation.  The escape chute
     combines with min; a missing diagonal contributes nothing.
     """
     r = op.n_rows
@@ -380,16 +377,7 @@ def blockdense_minplus2(op: BlockDenseOperator, x_dist: jax.Array,
     :func:`blockdense_minplus` calls streams M twice AND materializes a
     second full-size operator with its entries zeroed (2.6 GB at 1M).
     Here the gate is derived from M on the fly and both minima ride one
-    variadic reduce, so XLA's input fusion reads M once.  (Measured
-    in-loop at 1M, scripts/probe_minplus_variants.py: this variadic
-    form runs rounds at ~269 ms vs ~304 ms for two separate plain
-    ``jnp.min`` reductions and ~526 ms for a fixed-width escape-ELL
-    variant -- standalone-launch timings suggest the opposite ranking,
-    but the ~48 ms degraded-dispatch tax and different fusion inside
-    ``scan``/``while_loop`` make only in-loop slopes trustworthy.  The
-    per-round cost splits roughly evenly between the 2.56 GB M streams
-    and the escape chute's 2M-slot gathers + sorted scatter
-    segment_mins; both are structural, not formulation, costs.)
+    variadic reduce, so XLA's input fusion reads M once.
     Requires a combine="min" operator (+inf empty slots; an empty slot
     fails the threshold, so it drops out of both reductions).
     """

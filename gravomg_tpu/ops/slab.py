@@ -1,28 +1,25 @@
 """Bucketed variable-window SpMV: pay only for the windows each row
 block actually needs.
 
-Measured motivation (scripts/analyze_spread.py, scripts/slab_totals.py
-at 200k): after Morton ordering the median row block needs ~3 column
-windows but the p99 block needs ~13 (torus seam rows), so the uniform
-block-dense format (ops/blockdense.py) must size every block for the
-tail -- its level-0 window matrix is ~1.1 GB at ~1% useful density,
-and the V-cycle is bandwidth-bound on exactly that stream (VERDICT r2
-Weak #1).  Variable windows cut the stream to ~280-460 MB.
+Motivation (scripts/analyze_spread.py, scripts/slab_totals.py at 200k):
+after Morton ordering the median row block needs ~3 column windows but
+the p99 block needs ~13 (torus seam rows), so the uniform block-dense
+format (ops/blockdense.py) must size every block for the tail -- its
+level-0 window matrix is ~1.1 GB at ~1% useful density.  Variable
+windows cut that array to ~280-460 MB.
 
 Design: partition row blocks into BUCKETS by their greedy first-fit
 window count, permute blocks so each bucket is contiguous, and build
 one uniform BlockDenseOperator per bucket (window count = bucket cap).
-The matvec runs one kernel per bucket (XLA or the Pallas kernel from
-ops/pallas_blockdense.py) and un-permutes the output at BLOCK
-granularity -- a (NBLK,)-row gather costing ~7 ns/row (PROGRESS.md
-cost model), negligible at block >= 8.
+The matvec runs one XLA block-dense product per bucket and un-permutes
+the output at BLOCK granularity (one (NBLK,)-row gather).
 
 Everything except bucket sizing runs on device; the conversion is
 meant for the post-`check_diagnostics` phase (the process has already
 synced) like attach_fast_operators.
 
 Reference context: execution form for the hierarchy operators of
-`/root/reference/src/multigrid.cpp`; no reference counterpart (it is a
+the reference's `src/multigrid.cpp`; no reference counterpart (it is a
 sequential Eigen library).
 """
 
@@ -35,6 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from gravomg_tpu.compile_cache import run_concurrently
 from gravomg_tpu.ops.blockdense import (BlockDenseOperator,
                                         blockdense_from_ell,
                                         blockdense_matvec, trim_escape)
@@ -49,8 +47,6 @@ class SlabOperator(NamedTuple):
     n_rows: int
     n_cols: int
     block: int
-    use_pallas: bool = True         # static: kernel choice per bucket
-    mxu: bool = False               # static: transposed-tile MXU form
 
     @property
     def m_bytes(self) -> int:
@@ -60,7 +56,7 @@ class SlabOperator(NamedTuple):
 jax.tree_util.register_pytree_node(
     SlabOperator,
     lambda op: ((op.diag, op.buckets, op.inv_block_perm),
-                (op.n_rows, op.n_cols, op.block, op.use_pallas, op.mxu)),
+                (op.n_rows, op.n_cols, op.block)),
     lambda aux, ch: SlabOperator(*ch, *aux),
 )
 
@@ -106,25 +102,14 @@ def slab_from_ell(cols: jax.Array, vals: jax.Array, valid: jax.Array,
                   n_cols: int, diag: Optional[jax.Array] = None,
                   block: int = 8, window: int = 128, nw_max: int = 24,
                   escape_cap: int = 4096, dtype=None,
-                  align: int = 128,
-                  use_pallas: Optional[bool] = None,
-                  mxu: bool = False) -> SlabOperator:
+                  align: int = 128) -> SlabOperator:
     """Build a SlabOperator from (R, K) ELL columns/values/mask.
 
     Host-interactive (syncs the per-block window counts); call after
     the device-resident build phase, like attach_fast_operators.
     Raises if nw_max windows cannot cover some block (pathological
     ordering) -- fall back to the uniform format in that case.
-
-    ``mxu=True`` selects the transposed-tile MXU form (forces
-    block=128, window=128): each (block, segment) is stored as a
-    128x128 tile mt[s, l, r] = A[row r, seg*128 + l] so the matvec is
-    one (1,128)@(128,128) MXU op per tile -- the VPU form bottoms out
-    at ~0.3 us/block of Mosaic per-op overhead regardless of geometry
-    (measured at 200k), while MXU tiles stream at memory bandwidth.
     """
-    if mxu:
-        block, window, align = 128, 128, 128
     r, k = cols.shape
     if vals is not None:
         valid = valid & (vals != 0.0)
@@ -154,121 +139,52 @@ def slab_from_ell(cols: jax.Array, vals: jax.Array, valid: jax.Array,
     valid_s = valid_p[row_perm]
     first_s = np.asarray(first)[perm]
 
-    buckets = []
-    start = 0
-    # Each bucket's block count is padded up to a multiple of 32 so the
-    # Pallas kernel can group blocks per grid step regardless of the
-    # bucket's (possibly prime) natural size; pad blocks are all-zero
-    # rows whose output the inverse permutation never reads.  The
-    # inverse permutation maps against PADDED offsets.
-    BPAD = 32
-    inv = np.empty((nblk,), np.int32)
-    pad_off = 0
-    for ci in range(len(caps)):
-        nb = int(np.sum(cap_idx == ci))
-        if nb == 0:
-            continue
-        cap = int(caps[ci])
-        # Small buckets still pad to a multiple of 8 blocks: Mosaic
-        # block shapes need an 8-divisible second-minor dim, and the
-        # kernel's blocked output spec needs a valid group size.
-        nbp = (-(-nb // BPAD) * BPAD if nb > BPAD
-               else -(-nb // 8) * 8)
+    def build_bucket(start, nb, cap):
         lo, hi = start * block, (start + nb) * block
-        c_b, v_b, m_b = cols_s[lo:hi], vals_s[lo:hi], valid_s[lo:hi]
         anch = first_s[start:start + nb]
-        if nbp > nb:
-            padn = (nbp - nb) * block
-            c_b = jnp.pad(c_b, ((0, padn), (0, 0)))
-            v_b = jnp.pad(v_b, ((0, padn), (0, 0)))
-            m_b = jnp.pad(m_b, ((0, padn), (0, 0)))
-            anch = np.pad(anch, (0, nbp - nb))
         # Anchor window 0 at each block's first-fit start so the
         # placement matches window_counts exactly (blockdense's default
         # anchor is the scaled diagonal, which is not first-fit).
         bop, b_ovf = blockdense_from_ell(
-            c_b, v_b, m_b, n_cols,
+            cols_s[lo:hi], vals_s[lo:hi], valid_s[lo:hi], n_cols,
             diag=None, block=block, window=window, nw=cap,
             escape_cap=escape_cap, window0=window,
             anchors=jnp.asarray(anch + window // 2), align=align)
         if bool(b_ovf):
             raise ValueError("slab_from_ell: escape overflow in bucket "
                              f"cap={cap} (escape_cap={escape_cap})")
-        # Static escape_cap slots would cost ~10 ns each per matvec
-        # even when empty; slice to the actual fill (host sync, fine
-        # here -- this whole builder is host-interactive).
+        # Static escape_cap slots cost a gather per matvec even when
+        # empty; slice to the actual fill (host sync, fine here -- this
+        # whole builder is host-interactive).
         bop = trim_escape(bop)
-        if mxu:
-            # (NB, 128, cap*128) row-major -> (NB, cap, 128, 128)
-            # transposed tiles [b, s, l, r]; one-time conversion copy.
-            mt = bop.m.reshape(nbp, 128, cap, 128).transpose(0, 2, 3, 1)
-            bop = bop._replace(m=mt)
         if dtype is not None:
             bop = bop._replace(m=bop.m.astype(dtype))
-        buckets.append(bop)
-        inv[perm[start:start + nb]] = pad_off + np.arange(nb)
-        start += nb
-        pad_off += nbp
+        return bop
 
-    if use_pallas is None:
-        # Mosaic kernels only lower on TPU; elsewhere (CPU tests,
-        # virtual multichip meshes) the per-bucket XLA path is used.
-        use_pallas = jax.default_backend() == "tpu"
+    jobs = []
+    start = 0
+    inv = np.empty((nblk,), np.int32)
+    for ci in range(len(caps)):
+        nb = int(np.sum(cap_idx == ci))
+        if nb == 0:
+            continue
+        jobs.append(functools.partial(build_bucket, start, nb,
+                                      int(caps[ci])))
+        inv[perm[start:start + nb]] = start + np.arange(nb)
+        start += nb
+    # Buckets are independent and each compiles its own shapes.
+    buckets = run_concurrently(jobs)
+
     return SlabOperator(diag=diag, buckets=tuple(buckets),
                         inv_block_perm=jnp.asarray(inv), n_rows=r,
-                        n_cols=n_cols, block=block,
-                        use_pallas=bool(use_pallas), mxu=mxu)
+                        n_cols=n_cols, block=block)
 
 
-def _bucket_escape(b: BlockDenseOperator, y: jax.Array,
-                   x: jax.Array) -> jax.Array:
-    """Apply a bucket's sorted-COO escape chute to its flat output."""
-    if not b.esc_w.shape[0]:
-        return y
-    r = y.shape[0]
-    contrib = b.esc_w * x[jnp.minimum(b.esc_cols, b.n_cols - 1)]
-    return y + jax.ops.segment_sum(
-        contrib.astype(x.dtype), jnp.minimum(b.esc_rows, r),
-        num_segments=r + 1, indices_are_sorted=True)[:r]
-
-
-def _mxu_bucket_matvec_xla(b: BlockDenseOperator, x: jax.Array
-                           ) -> jax.Array:
-    """XLA fallback for a transposed-tile bucket (CPU tests, virtual
-    meshes): gather the segment rows, contract with the tiles."""
-    nb, k, _, _ = b.m.shape
-    segs = b.win_start // 128                             # (nb, k)
-    pad = -(-(x.shape[0] + 128) // 128) * 128 - x.shape[0]
-    x2 = jnp.pad(x, (0, pad)).reshape(-1, 128)
-    wins = x2[segs]                                       # (nb, k, 128)
-    y = jnp.einsum("bkl,bklr->br", wins.astype(b.m.dtype), b.m,
-                   preferred_element_type=jnp.promote_types(
-                       b.m.dtype, jnp.float32)).astype(x.dtype)
-    return _bucket_escape(b, y.reshape(-1), x)
-
-
-def slab_matvec(op: SlabOperator, x: jax.Array,
-                pallas: Optional[bool] = None) -> jax.Array:
-    """y = A x via per-bucket kernels + block-level un-permutation."""
-    if pallas is None:
-        pallas = op.use_pallas
-    if op.mxu:
-        if pallas:
-            from gravomg_tpu.ops.pallas_blockdense import \
-                mxu_matvec_pallas
-
-            def bucket_mv(b, v):
-                y = mxu_matvec_pallas(b.m, b.win_start // 128, v,
-                                      b.m.shape[0] * 128)
-                return _bucket_escape(b, y, v)
-        else:
-            bucket_mv = _mxu_bucket_matvec_xla
-    elif pallas:
-        from gravomg_tpu.ops.pallas_blockdense import \
-            blockdense_matvec_pallas as bucket_mv
-    else:
-        bucket_mv = blockdense_matvec
-    parts = [bucket_mv(b, x).reshape(-1, op.block) for b in op.buckets]
+def slab_matvec(op: SlabOperator, x: jax.Array) -> jax.Array:
+    """y = A x via per-bucket block-dense products + block-level
+    un-permutation."""
+    parts = [blockdense_matvec(b, x).reshape(-1, op.block)
+             for b in op.buckets]
     ycat = jnp.concatenate(parts, axis=0)            # (NBLK, BLK)
     y = ycat[op.inv_block_perm].reshape(-1)[:op.n_rows]
     if op.diag is not None:

@@ -2,18 +2,17 @@
 
 Quarantined per docs/DESIGN.md §7: rectangular transfers ship on the
 block-dense/slab forms (``ops/blockdense.py`` / ``ops/slab.py``),
-which subsume this format's windows with per-block anchors.  Kept for
-its recorded measurements and tests.
+which subsume this format's windows with per-block anchors.  Kept, with
+its tests, until the per-level format choice settles (ROADMAP, Design 1).
 
-Same cost model as ops/banded.py: XLA gather costs ~7 ns per index, so
-applying U (V_f x V_c, <=3 nnz/row) by gathering coarse values per row
-costs 3*V_f indices -- milliseconds that dwarf a fixed SpMV.  But the
+Same idea as ops/banded.py: applying U (V_f x V_c, <=3 nnz/row) by
+gathering coarse values per row costs 3*V_f gathered indices.  But the
 hierarchy's coarse vertices inherit the fine spatial order (samples are
 ascending fine ids), so row r's columns cluster around r * (n_cols /
 n_rows): a handful of contiguous column windows per small row block
 covers nearly everything.  The matvec becomes: gather NBLK*NW window
 slices (negligible index count), resolve each entry by one-hot compare
-inside its window (pure VPU), plus an exact sorted-COO escape chute.
+inside its window, plus an exact sorted-COO escape chute.
 
 Used for prolongation U, gather-form restriction U^T (children table),
 and any other rectangular ELL operator over spatially ordered ids.

@@ -57,8 +57,7 @@ def attach_collection(hs: Sequence[SolverHierarchy],
     partition is data-dependent and cannot be shape-shared.
 
     Without this, a batched V-cycle over a collection runs the
-    gather-based ELL path, which vmap lowers to batched gathers --
-    the exact ~7 ns/index regime the fast forms exist to avoid.
+    gather-based ELL path, which vmap lowers to batched gathers.
     """
     from gravomg_tpu.solve.vcycle import attach_fast_operators
 

@@ -2,8 +2,8 @@
 
 The plain sharded path (parallel/sharding.py) lets XLA all-gather the
 full source vector before every row gather: per-device communication
-and x-footprint are O(V).  That demonstrates correctness, not scaling
-(VERDICT r3 missing #4).  This module is the graph analogue of halo
+and x-footprint are O(V).  That demonstrates correctness, not scaling.
+This module is the graph analogue of halo
 exchange in context parallelism (SURVEY.md §5): each device owns a
 contiguous block of Morton-ordered rows, and the only remote values it
 touches are the x-entries referenced by its rows' off-shard columns --
@@ -31,9 +31,9 @@ single static collective):
     reports the measured ratio; tests assert it stays well below 1.
 
 The reference is a sequential CPU library with no distributed code
-(SURVEY.md §2.3); this is the TPU-native scaling design for meshes
-beyond one chip's HBM, mapped onto ICI collectives per the
-scaling-book recipe (shard_map + all_to_all, no NCCL analogue).
+(SURVEY.md §2.3); this is the scaling design for meshes beyond one
+device's memory: shard_map + all_to_all, which XLA hands to the
+backend's collectives (NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -187,7 +187,8 @@ def _mv_body(axis: str, cols, vals, diag, send_idx, x):
         y = jnp.sum(vals * xx[cols], axis=1)
         return y + diag * x if diag.shape[0] else y
     xx = jnp.concatenate([x, recv.reshape(-1, x.shape[1])])
-    y = jnp.einsum("vk,vkd->vd", vals, xx[cols])
+    y = jnp.einsum("vk,vkd->vd", vals, xx[cols],
+                   precision=jax.lax.Precision.HIGHEST)
     return y + diag[:, None] * x if diag.shape[0] else y
 
 
@@ -318,15 +319,23 @@ def halo_solve(hs: HaloSolver, b: jax.Array, cfg: MultigridConfig,
 
     ``b`` is the unpadded RHS; returns (x[:n], rel, iters).
     """
-    from gravomg_tpu.solve.cg import fcg, pcg
-
     n = b.shape[0] if n_real is None else n_real
     vp = hs.levels[0].op.n_rows
     bp = jnp.zeros((vp,), b.dtype).at[:b.shape[0]].set(b)
     bp = jax.device_put(bp, NamedSharding(mesh, P(axis)))
 
+    x, rel, it = _halo_runner(mesh, axis, cfg, method)(hs, bp)
+    return x[:n], rel, it
+
+
+@functools.lru_cache(maxsize=16)
+def _halo_runner(mesh: Mesh, axis: str, cfg: MultigridConfig, method: str):
+    """The jitted halo solve, one per (mesh, axis, cfg, method), so
+    repeated solves reuse its compilation."""
+    from gravomg_tpu.solve.cg import fcg, pcg
+
     # hs rides in as a jit ARGUMENT (closure-captured arrays would be
-    # baked as HLO constants and re-materialized per call, PROGRESS.md).
+    # baked as HLO constants and re-materialized per call).
     @jax.jit
     def run(hs, bp):
         op0 = hs.levels[0].op
@@ -340,5 +349,4 @@ def halo_solve(hs: HaloSolver, b: jax.Array, cfg: MultigridConfig,
         return fn(op0, bp, precond, tol=cfg.tolerance,
                   max_iters=cfg.max_cycles, mv=mv)
 
-    x, rel, it = run(hs, bp)
-    return x[:n], rel, it
+    return run

@@ -1,7 +1,7 @@
 """Multi-device execution: batched (data-parallel) and vertex-sharded solves.
 
 The reference is single-threaded CPU with no parallel code at all
-(SURVEY.md §2.3); the TPU-native scaling axes for this domain are:
+(SURVEY.md §2.3); the scaling axes for this domain are:
 
   * **data parallelism over meshes** -- vmapped V-cycles on a batch of
     same-bucket meshes, sharded over the device mesh's 'data' axis
@@ -14,8 +14,8 @@ The reference is single-threaded CPU with no parallel code at all
     CG/V-cycle norms become psums automatically.
 
 Both paths are plain jit-with-shardings: no hand-written collectives are
-needed at this communication pattern's scale (an all-gather of a (V,)
-vector per SpMV rides ICI at line rate).
+needed at this communication pattern's scale (one all-gather of a (V,)
+vector per SpMV).  The mesh is 1-D and topology-free.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from gravomg_tpu.config import MultigridConfig
 from gravomg_tpu.solve.vcycle import SolverHierarchy, v_cycle
 from gravomg_tpu.solve.spmv import spmv
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -84,8 +86,8 @@ def pad_solver_fine_level(h: SolverHierarchy, mult: int) -> SolverHierarchy:
 def pad_solver_levels(h: SolverHierarchy, mult: int,
                       pad_coarse: bool = False) -> SolverHierarchy:
     """Pad EVERY level but the coarsest to a vertex count divisible by
-    ``mult`` so the whole V-cycle shards evenly (VERDICT r2 task 8: the
-    finest-level-only padding demonstrated layouts, not scaling).
+    ``mult`` so the whole V-cycle shards evenly (finest-level-only
+    padding would demonstrate layouts, not scaling).
 
     Padded rows are decoupled identity rows (diag 1, no neighbors);
     padded prolongation rows carry zero weights; padded restriction
@@ -200,8 +202,8 @@ def shard_solver(h: SolverHierarchy, mesh: Mesh,
     Call :func:`pad_solver_levels` first (every non-coarsest level's
     vertex count must divide the mesh size).  Vectors produced inside a
     jitted solve inherit these layouts through XLA sharding
-    propagation; dot products become psums on ICI (scaling-book
-    recipe: annotate inputs, let XLA place the collectives).
+    propagation; dot products become psums (annotate inputs, let XLA
+    place the collectives).
 
     Block-dense fast forms (``banded``/``uw``/``utw``), when present,
     are sharded too (:func:`shard_fast_operator`) -- attach them AFTER
@@ -253,8 +255,8 @@ def sharded_solve(h: SolverHierarchy, b: jax.Array,
                   cfg: MultigridConfig, mesh: Mesh, axis: str = "data",
                   method: str = "mg_pcg"):
     """Full MG-preconditioned CG solve to ``cfg.tolerance`` with every
-    level vertex-sharded over the mesh (VERDICT r2 task 8's converged
-    sharded solve, not a single step).
+    level vertex-sharded over the mesh (a converged sharded solve, not a
+    single step).
 
     ``h`` must come from pad_solver_levels + shard_solver; ``b`` is the
     UNPADDED right-hand side.  Returns (x[:n], rel, iters).
@@ -300,8 +302,7 @@ def vertex_sharded_cg_step(h: SolverHierarchy, cfg: MultigridConfig,
     The fine operator's ELL rows and all fine vectors carry a
     PartitionSpec((axis,)) sharding; gathers of x[neighbors] induce an
     all-gather of x, reductions induce psum -- all inserted by XLA from
-    the annotations (scaling-book recipe: annotate, compile, let XLA
-    place collectives on ICI).
+    the annotations (annotate, compile, let XLA place the collectives).
     """
     vspec = NamedSharding(mesh, P(axis))
     a0 = h.levels[0].op
@@ -310,11 +311,11 @@ def vertex_sharded_cg_step(h: SolverHierarchy, cfg: MultigridConfig,
         x = jax.lax.with_sharding_constraint(x, vspec)
         p = jax.lax.with_sharding_constraint(p, vspec)
         ap = spmv(a0, p)
-        alpha = rz / jnp.vdot(p, ap)
+        alpha = rz / jnp.vdot(p, ap, precision=_HI)
         x = x + alpha * p
         r = r - alpha * ap
         z = v_cycle(h, jnp.zeros_like(r), r, cfg, x0_zero=True)
-        rz_new = jnp.vdot(r, z)
+        rz_new = jnp.vdot(r, z, precision=_HI)
         beta = rz_new / rz
         p = z + beta * p
         return (jax.lax.with_sharding_constraint(x, vspec), r, p, rz_new)

@@ -53,6 +53,9 @@ import jax.numpy as jnp
 from gravomg_tpu.types import (Graph, Prolongation, TriangleSet,
                                INVALID_INDEX, safe_gather_index)
 
+# Full-f32 products (no TF32 passes): weights match the reference to 1e-6.
+_HI = jax.lax.Precision.HIGHEST
+
 BARYCENTRIC, UNIFORM, INVDIST = 0, 1, 2  # `multigrid.h:12-16`
 
 
@@ -90,16 +93,14 @@ def _prolongation_rows(fine_points, parents, coarse_points, coarse_nbr,
     tri_safe = jnp.where(tri_v == INVALID_INDEX, 0, tri_v)
     assoc = triangles.assoc
 
-    # Pack each triangle's data into ONE gatherable row: XLA TPU
-    # gathers cost ~7 ns PER INDEX regardless of slice width
-    # (PROGRESS.md cost model), and the scan below visits A candidate
-    # triangles per fine point.  Separate vertex-id / normal /
-    # 3x coarse-point gathers cost 5A indices per point (measured
-    # 2.84 s at 200k level 0); one packed (T, 16) row per candidate
-    # costs A.  Layout: v0 v1 v2 coords (9), normal (3), the three
-    # vertex ids bitcast int32->f32 (offset by 2^23 so every pattern is
-    # a NORMAL float -- TPU flushes denormals, and f64<->f32 conversion
-    # of normals is exact on the CPU f64 path), one pad lane.
+    # Pack each triangle's data into ONE gatherable row: the scan below
+    # visits A candidate triangles per fine point, and separate
+    # vertex-id / normal / 3x coarse-point gathers cost 5A indices per
+    # point where one packed (T, 16) row per candidate costs A.
+    # Layout: v0 v1 v2 coords (9), normal (3), the three vertex ids
+    # bitcast int32->f32 (offset by 2^23 so every pattern is a NORMAL
+    # float -- devices may flush denormals, and f64<->f32 conversion of
+    # normals is exact on the f64 path), one pad lane.
     dt = coarse_points.dtype
     _id_f = jax.lax.bitcast_convert_type(
         tri_safe.astype(jnp.int32) + jnp.int32(2 ** 23), jnp.float32)
@@ -128,7 +129,8 @@ def _prolongation_rows(fine_points, parents, coarse_points, coarse_nbr,
         # Reference normalizes by the TRUE norm but divides by the clamped
         # length (`src/multigrid.cpp:311-313`); keep both for exactness.
         seg_len = jnp.maximum(jnp.linalg.norm(seg), 1e-8)
-        w_nb = jnp.dot(p - pc, seg / jnp.linalg.norm(seg)) / seg_len
+        w_nb = jnp.dot(p - pc, seg / jnp.linalg.norm(seg),
+                       precision=_HI) / seg_len
         w_nb = jnp.clip(w_nb, 0.0, 1.0)
         w2 = _two_point_weights(scheme, coarse_points, p, w_nb, c, nb0)
         single_cols = jnp.stack([c, nb0, c])
@@ -139,10 +141,8 @@ def _prolongation_rows(fine_points, parents, coarse_points, coarse_nbr,
         tvalid = ts != INVALID_INDEX
         ts_safe = jnp.where(tvalid, ts, 0)
         prow = packed[ts_safe]                    # (A, 16): ONE gather
-        # 2-D slices/selects ONLY: a (A, 3, 3) take_along_axis temp
-        # tile-pads its minor dims ~40x on TPU (PROGRESS pathology 5;
-        # measured: it made this stage 1.6x SLOWER than the unpacked
-        # form it replaced).
+        # 2-D slices/selects ONLY: a (A, 3, 3) take_along_axis temp has
+        # tiny minor dims that tiled layouts pad many-fold.
         p0, p1, p2 = prow[:, 0:3], prow[:, 3:6], prow[:, 6:9]
         tn = prow[:, 9:12]                        # (A, 3)
         tv = jax.lax.bitcast_convert_type(
@@ -207,7 +207,8 @@ def _prolongation_rows(fine_points, parents, coarse_points, coarse_nbr,
         eseg = npts[e_slot] - pc
         eseg_len = jnp.maximum(jnp.linalg.norm(eseg), 1e-8)
         w_e = jnp.clip(
-            jnp.dot(p - pc, eseg / jnp.linalg.norm(eseg)) / eseg_len,
+            jnp.dot(p - pc, eseg / jnp.linalg.norm(eseg),
+                    precision=_HI) / eseg_len,
             0.0, 1.0)
         we2 = _two_point_weights(scheme, coarse_points, p, w_e, c, e_idx)
         edge_cols = jnp.stack([c, e_idx, c])
@@ -262,8 +263,8 @@ def _affine_tables(coarse_points: jax.Array, coarse_nbr: jax.Array,
     gradient vectors + offsets; the per-(point, candidate) test
     ``inTriangle`` (`src/multigrid.cpp:29-35`) becomes two fused
     multiply-adds on (block, A) lane-major arrays instead of vector
-    algebra on (block, A, 3) temps whose minor dim TPU tiling pads ~40x
-    (PROGRESS.md pathology 5 -- measured 13.5 s for this stage at 1M).
+    algebra on (block, A, 3) temps whose tiny minor dim tiled layouts
+    pad many-fold.
 
     Returns:
       packed_rot: (3T, 16) f32 rows ``[g0 (3), c0, g1 (3), c1, rotated
@@ -493,8 +494,8 @@ def construct_prolongation(fine_points: jax.Array, parents: jax.Array,
 
     ``affine`` selects the lane-major affine-barycentric kernel
     (:func:`_prolongation_block_affine`): "auto" enables it for f32
-    inputs (where it replaces 13.5 s of minor-dim-3 padded VPU work at
-    1M with fused multiply-adds on (block, A) arrays) and keeps the
+    inputs (where it replaces minor-dim-3 vector algebra with fused
+    multiply-adds on (block, A) arrays) and keeps the
     sequential-formula kernel for f64/compat runs, whose 1e-12 oracle
     bound depends on following the reference's exact float sequence.
     "on"/"off" force it.
@@ -622,8 +623,8 @@ def restrict(u_op: Prolongation, fine_values: jax.Array) -> jax.Array:
     """Apply U^T: coarse = U^T @ fine.  Restriction is U^T in the Gravo MG
     method (reference `README.md:1` names it; never materialized there).
 
-    Scatter-form fallback; on TPU this lowers to sort-based code, so the
-    solver hot path uses the precomputed gather-form
+    Scatter-form fallback (a scatter-add over 3 Vf entries); the solver
+    hot path uses the precomputed gather-form
     :func:`build_restriction` / :func:`restrict_gather` instead.
     """
     if fine_values.ndim == 1:
@@ -642,8 +643,8 @@ def build_restriction(u_op: Prolongation,
                       max_children: int) -> Tuple["Restriction", jax.Array]:
     """Precompute gather-form U^T: per coarse vertex, the (fine row, U
     weight) pairs that contribute to it.  Built once per hierarchy; turns
-    every restriction in the V-cycle from a TPU scatter (sort-lowered)
-    into a fixed-shape gather + row-reduce.
+    every restriction in the V-cycle from a scatter-add into a
+    fixed-shape gather + row-reduce.
 
     Zero-weight U entries (padded fine rows, duplicated slots) are
     dropped.  Returns (Restriction, overflow flag) -- overflow means some
@@ -686,7 +687,8 @@ def restrict_gather(rt, fine_values: jax.Array) -> jax.Array:
     safe = rt.safe_rows()
     if fine_values.ndim == 1:
         return jnp.sum(rt.weights * fine_values[safe], axis=1)
-    return jnp.einsum("ck,ckd->cd", rt.weights, fine_values[safe])
+    return jnp.einsum("ck,ckd->cd", rt.weights, fine_values[safe],
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def projected_points(u_op: Prolongation,

@@ -11,15 +11,15 @@ ascending (`src/multigrid.cpp:253-256`); we reproduce both exactly, since
 the prolongation's first-hit tie-break iterates association lists in
 order (`src/multigrid.cpp:356,374-380`).
 
-TPU-native: the candidate tensor (C, K, K) over sorted neighbor-slot
+Fixed-shape form: the candidate tensor (C, K, K) over sorted neighbor-slot
 pairs is evaluated with a vectorized adjacency membership test, compacted
 with a static-size nonzero, and association lists are grouped with one
 stable sort (SURVEY.md §7 step 3).
 
 Launch structure: the per-anchor key extraction is issued as several
-bounded launches of ``_SLAB`` rows each (a Python loop, no syncs) -- the
-single fused launch exceeded the runtime's device watchdog at 1M
-vertices (~104 chunk sorts in one launch).  Assembly (global ids,
+bounded launches of ``_SLAB`` rows each (a Python loop, no syncs)
+rather than one fused launch of ~104 chunk sorts at 1M vertices, which
+also bounds compile size.  Assembly (global ids,
 normals, association lists) is one further launch.
 """
 
@@ -61,10 +61,10 @@ def _anchored_keys_slab(nbrs: jax.Array, raws: jax.Array, ms: jax.Array,
         pmc = mc[:, :, None] & mc[:, None, :] & slot_ok
         pmc &= nbrc[:, :, None] > idxc[:, None, None]
         # Adjacency membership: exists[c, k1, k2] = v2 in
-        # neighbors(v1).  Dense VPU equality over the inner slot --
+        # neighbors(v1).  Dense equality over the inner slot --
         # O(K^3) compares but compare-bound, not gather-bound (the
         # earlier searchsorted form lowers to ~K^2 log K serial gathers
-        # per vertex at ~7 ns each).  imax padding in rows_v1 can only
+        # per vertex).  imax padding in rows_v1 can only
         # equal imax padding in rawc, and those slots are masked off by
         # pmc.
         rows_v1 = raw_full[nbrc]                       # (cc, K, K_inner)

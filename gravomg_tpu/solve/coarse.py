@@ -1,10 +1,10 @@
 """Coarsest-level direct solve: dense Cholesky on chip.
 
 BASELINE.json: "The coarsest level falls back to a dense Cholesky solve
-on-chip."  The coarsest operator is a few hundred vertices, so the dense
-factor lives comfortably in VMEM and the triangular solves are small
-MXU-friendly batched ops.  A small diagonal shift keeps semi-definite
-operators (pure Neumann Laplacians) factorizable.
+on-chip."  The coarsest operator is at most a few thousand vertices, so
+the dense factor is small and the triangular solves are small batched
+ops.  A small diagonal shift keeps semi-definite operators (pure Neumann
+Laplacians) factorizable.
 """
 
 from __future__ import annotations

@@ -7,7 +7,7 @@ BASELINE.json.  Exploits U's <=3 nnz/row invariant
   offdiag:  A_ij * U[i,a] * U[j,b]           (K * 3x3 pairs)
 to A_c[col_a, col_b].  All contributions are emitted as one flat triplet
 stream and merged with a single sort-based scatter (ops/segment.py) --
-the one-shot TPU replacement for incremental sparse insertion.
+the one-shot, fixed-shape replacement for incremental sparse insertion.
 """
 
 from __future__ import annotations
@@ -112,10 +112,9 @@ def _galerkin_rap_chunked(op: EllOperator, u: Prolongation,
     """Host-level chunk loop: ONE bounded launch per chunk.
 
     The previous lax.scan form fused every chunk's 9-pair triplet sort
-    (~45M elements each at 1M vertices) into a single launch, which
-    exceeded the runtime's device watchdog (the round-3 1M RAP kernel
-    fault).  The Python loop issues the same jitted chunk body per
-    slice -- identical math, no syncs, one compile (fixed chunk shape).
+    (~45M elements each at 1M vertices) into a single launch.  The
+    Python loop issues the same jitted chunk body per slice -- identical
+    math, no syncs, one compile (fixed chunk shape).
     """
     vf, k = op.neighbors.shape
     nc = u.n_coarse
@@ -167,9 +166,8 @@ def _rap_rows(op: EllOperator, u: Prolongation, all_uc: jax.Array,
     uw = u.weights                                # (Vf, 3)
 
     # Emit the 9 (a, b) U-pair contributions as flat 1-D streams.  A
-    # fused (Vf, K, 3, 3) broadcast would tile-pad its trailing (3, 3)
-    # dims to (8, 128) on TPU -- a 57x memory blowup that OOMs at scale;
-    # 1-D and (Vf, K) temps pad benignly.
+    # fused (Vf, K, 3, 3) broadcast has tiny trailing (3, 3) dims that
+    # tiled layouts pad many-fold; 1-D and (Vf, K) temps pad benignly.
     rows_l, cols_l, vals_l, valid_l = [], [], [], []
     flat_mask = op.mask.reshape(-1)
     for a in range(3):

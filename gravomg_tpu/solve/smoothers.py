@@ -57,7 +57,9 @@ def estimate_lambda_max(op: EllOperator, iterations: int = 30,
 
     x = jax.lax.fori_loop(0, iterations, body, x)
     y = dinv * spmv(op, x)
-    return jnp.vdot(x, y) / jnp.maximum(jnp.vdot(x, x), 1e-30)
+    hi = jax.lax.Precision.HIGHEST
+    return (jnp.vdot(x, y, precision=hi)
+            / jnp.maximum(jnp.vdot(x, x, precision=hi), 1e-30))
 
 
 def gershgorin_lambda_max(op: EllOperator) -> jax.Array:

@@ -3,7 +3,7 @@
 The solver half is absent from the reference fork (SURVEY.md §0); its
 contract is fixed by the hierarchy semantics plus BASELINE.json (blocked
 ELL SpMV, north star).  The padded ELL layout makes SpMV a fixed-shape
-gather + multiply + row-reduce -- ideal for the VPU.
+gather + multiply + row-reduce that XLA fuses into one kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ def spmv(op: EllOperator, x: jax.Array) -> jax.Array:
     if x.ndim == 1:
         return op.diag * x + jnp.sum(w * x[safe], axis=1)
     return (op.diag[:, None] * x
-            + jnp.einsum("vk,vkd->vd", w, x[safe]))
+            + jnp.einsum("vk,vkd->vd", w, x[safe],
+                         precision=jax.lax.Precision.HIGHEST))
 
 
 def residual(op: EllOperator, x: jax.Array, b: jax.Array) -> jax.Array:

@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from gravomg_tpu.compile_cache import run_concurrently
 from gravomg_tpu.config import MultigridConfig
 from gravomg_tpu.types import EllOperator, Prolongation, Restriction
 from gravomg_tpu.solve.spmv import spmv
@@ -26,14 +27,13 @@ class SolverLevel(NamedTuple):
     u: Optional[Prolongation]           # maps next-coarser level -> this one
     cheb: Optional[ChebyshevParams]
     # Gather-form U^T (children table).  Optional: scatter-form restrict
-    # is the fallback; the hot path wants this populated (TPU scatters
-    # lower to sorts).
+    # is the fallback; the hot path wants this populated (a fixed-shape
+    # gather + row reduce instead of a scatter-add).
     ut: Optional[Restriction] = None
-    # Gather-free fast forms (ops/blockdense.py), built by
-    # attach_fast_operators for spatially ordered hierarchies.  When
-    # present they replace the gather-based matvec/transfers, which on
-    # this TPU runtime cost ~7 ns per gathered index (measured ~19x
-    # slower than the block-dense streaming form at 200k).
+    # Window-form operators (ops/blockdense.py, ops/slab.py), built by
+    # attach_slab_operators / attach_fast_operators for spatially
+    # ordered hierarchies.  When present they replace the ELL gather
+    # matvec/transfers for 1-D vectors.
     banded: Optional["BlockDenseOperator"] = None   # A_l   # noqa: F821
     uw: Optional["BlockDenseOperator"] = None       # U     # noqa: F821
     utw: Optional["BlockDenseOperator"] = None      # U^T   # noqa: F821
@@ -236,34 +236,33 @@ def attach_fast_operators(h: SolverHierarchy,
         if used_geometry is not None:
             used_geometry[key] = (cur_nw, cap)
         if trim:
-            # Drop empty chute padding: static escape slots cost ~10 ns
-            # each per matvec whether filled or not (host sync, fine
-            # here).  Skipped for collections, where shapes must be a
-            # function of geometry alone.
+            # Drop empty chute padding: static escape slots cost a
+            # gather each per matvec whether filled or not (host sync,
+            # fine here).  Skipped for collections, where shapes must be
+            # a function of geometry alone.
             bop = trim_escape(bop)
         if dtype is not None:
             bop = bop._replace(m=bop.m.astype(dtype))
         return bop
 
-    levels = []
+    jobs, slots = [], []
     for li, lvl in enumerate(h.levels):
-        new = lvl
         v = lvl.op.num_vertices
         blk = min(block, max(v // 8, 8))
-        if (new.banded is not None or new.uw is not None
-                or new.utw is not None):
+        if (lvl.banded is not None or lvl.uw is not None
+                or lvl.utw is not None):
             # Already populated (e.g. by attach_slab_operators for the
             # large levels) -- leave as-is.
-            levels.append(new)
             continue
         if li < len(h.levels) - 1:
             # Diagonal band: block +- 2*block covers the near spread.
             w0 = min(-(-3 * blk // 128) * 128, v)
-            new = new._replace(banded=convert(
-                blockdense_from_operator, lvl.op, start_nw=6,
+            jobs.append(functools.partial(
+                convert, blockdense_from_operator, lvl.op, start_nw=6,
                 start_cap=escape_cap or max(1024, v // 8),
                 key=(li, "a"),
                 block=blk, window=min(window, v), window0=w0))
+            slots.append((li, "banded"))
         if lvl.u is not None:
             u = lvl.u
             nc = u.n_coarse
@@ -273,14 +272,15 @@ def attach_fast_operators(h: SolverHierarchy,
             w0 = min(-(-max(4 * blk // ratio, 128) // 64) * 64, nc)
             anch = block_anchors(u.cols, jnp.ones_like(u.cols, bool),
                                  blk)
-            new = new._replace(uw=convert(
-                blockdense_from_ell, u.cols, u.weights,
+            jobs.append(functools.partial(
+                convert, blockdense_from_ell, u.cols, u.weights,
                 jnp.ones_like(u.cols, bool), nc,
                 start_nw=4,
                 start_cap=escape_cap or max(1024, u.n_fine // 16),
                 key=(li, "u"),
                 block=blk, window=min(window, nc), window0=w0,
                 anchors=anch))
+            slots.append((li, "uw"))
         if lvl.ut is not None:
             rt = lvl.ut
             # A block of coarse rows spans ~block*ratio fine columns.
@@ -289,44 +289,44 @@ def attach_fast_operators(h: SolverHierarchy,
             w0 = min(-(-3 * blk_r * ratio // 128) * 128, rt.n_fine)
             vmask = rt.rows != INVALID_INDEX
             anch = block_anchors(rt.safe_rows(), vmask, blk_r)
-            new = new._replace(utw=convert(
-                blockdense_from_ell, rt.safe_rows(), rt.weights,
+            jobs.append(functools.partial(
+                convert, blockdense_from_ell, rt.safe_rows(), rt.weights,
                 vmask, rt.n_fine,
                 start_nw=4,
                 start_cap=escape_cap or max(1024, rt.n_coarse),
                 key=(li, "ut"),
                 block=blk_r, window=min(window, rt.n_fine),
                 window0=w0, anchors=anch))
-        levels.append(new)
+            slots.append((li, "utw"))
+    return _fill_levels(h, slots, run_concurrently(jobs))
+
+
+def _fill_levels(h: SolverHierarchy, slots, results) -> SolverHierarchy:
+    """Set ``results[i]`` into field ``slots[i] = (level, name)``."""
+    levels = list(h.levels)
+    for (li, field), res in zip(slots, results):
+        levels[li] = levels[li]._replace(**{field: res})
     return h._replace(levels=tuple(levels))
 
 
 def attach_slab_operators(h: SolverHierarchy,
                           block: int = 8, window: int = 128,
-                          dtype=None, use_pallas: Optional[bool] = None,
-                          min_rows: int = 4096,
-                          escape_cap: int = 65536,
-                          mxu: bool = False) -> SolverHierarchy:
+                          dtype=None, min_rows: int = 4096,
+                          escape_cap: int = 65536) -> SolverHierarchy:
     """Populate bucketed variable-window (slab) operator forms on every
     level large enough to profit (ops/slab.py).
 
     The uniform block-dense format must size every block for the p99
-    window-count tail (measured ~13 windows vs a median of ~3 at 200k,
-    scripts/analyze_spread.py), streaming ~1.1 GB per level-0 matvec at
-    ~1% density; the slab form pays only for the windows each block
-    needs (~280 MB).  Levels below ``min_rows`` keep whatever they have
+    window-count tail (~13 windows vs a median of ~3 at 200k,
+    scripts/analyze_spread.py), ~1.1 GB of level-0 window matrix at ~1%
+    density; the slab form pays only for the windows each block needs
+    (~280 MB).  Levels below ``min_rows`` keep whatever they have
     -- run :func:`attach_fast_operators` afterwards to fill those with
     uniform forms (it skips already-populated levels).
 
     Host-interactive (syncs per-block window counts); call post
     ``check_diagnostics``/``compact_solver`` like attach_fast_operators.
     Requires a spatially (Morton) ordered hierarchy.
-
-    ``mxu=True`` selects the transposed-tile MXU form; measured at 200k
-    it streams 3.6x more bytes (128-wide tiles re-densify the tail),
-    runs no faster than the VPU forms (~8 ms), and costs ~1e-3 relative
-    error (MXU f32 inputs round through bf16 passes), so it is off by
-    default and unsuitable for the exact operator.
     """
     from gravomg_tpu.ops.slab import slab_from_ell, slab_from_operator
     from gravomg_tpu.types import INVALID_INDEX
@@ -341,8 +341,7 @@ def attach_slab_operators(h: SolverHierarchy,
         for _ in range(4):
             try:
                 return build(*args, escape_cap=cap, dtype=dtype,
-                             block=block, window=window,
-                             use_pallas=use_pallas, mxu=mxu, **kw)
+                             block=block, window=window, **kw)
             except ValueError as e:
                 if "escape overflow" in str(e):
                     cap *= 4
@@ -350,27 +349,29 @@ def attach_slab_operators(h: SolverHierarchy,
                 return None
         return None
 
-    levels = []
+    jobs, slots = [], []
     for li, lvl in enumerate(h.levels):
-        new = lvl
-        v = lvl.op.num_vertices
-        if li < len(h.levels) - 1 and v >= min_rows:
-            new = new._replace(banded=convert(slab_from_operator,
-                                              lvl.op))
+        if li < len(h.levels) - 1 and lvl.op.num_vertices >= min_rows:
+            jobs.append(functools.partial(convert, slab_from_operator,
+                                          lvl.op))
+            slots.append((li, "banded"))
         if lvl.u is not None and lvl.u.n_fine >= min_rows \
                 and lvl.u.n_coarse >= window:
             u = lvl.u
-            new = new._replace(uw=convert(
-                slab_from_ell, u.cols, u.weights,
+            jobs.append(functools.partial(
+                convert, slab_from_ell, u.cols, u.weights,
                 jnp.ones_like(u.cols, bool), u.n_coarse))
+            slots.append((li, "uw"))
         if lvl.ut is not None and lvl.ut.n_coarse >= min_rows:
             rt = lvl.ut
             vmask = rt.rows != INVALID_INDEX
-            new = new._replace(utw=convert(
-                slab_from_ell, rt.safe_rows(), rt.weights, vmask,
+            jobs.append(functools.partial(
+                convert, slab_from_ell, rt.safe_rows(), rt.weights, vmask,
                 rt.n_fine))
-        levels.append(new)
-    return h._replace(levels=tuple(levels))
+            slots.append((li, "utw"))
+    # Conversions are independent and compile-bound; they run
+    # concurrently so their compiles overlap.
+    return _fill_levels(h, slots, run_concurrently(jobs))
 
 
 def attach_operators(h: SolverHierarchy, dtype=None,
@@ -388,7 +389,7 @@ def attach_operators(h: SolverHierarchy, dtype=None,
 def cast_fast_operators(h: SolverHierarchy, dtype) -> SolverHierarchy:
     """Cheap copy of a fast-operator hierarchy with the dense window
     matrices cast to ``dtype`` (e.g. bf16 for preconditioner duty;
-    halves the dominant M-streaming cost).  Diagonals, escape chutes,
+    halves the bytes of the window matrices).  Diagonals, escape chutes,
     and the exact ELL operators keep their precision."""
     from gravomg_tpu.ops.slab import SlabOperator
 
@@ -473,11 +474,11 @@ def solve_refined(h: SolverHierarchy, b: jax.Array, cfg: MultigridConfig,
     """Mixed-precision solve: f64 residual accumulation around f32
     V-cycle corrections (iterative refinement).
 
-    The reference is f64 throughout (SURVEY.md §2.2); on TPU, f64 is
-    emulated and slow, so the hot path (smoothing, SpMV, transfers) runs
-    in f32 while only the outer residual r = b - A x and the solution
-    accumulate in f64.  This reaches the BASELINE 1e-8 relative-residual
-    target at f32 kernel speed; requires x64 enabled.
+    The reference is f64 throughout (SURVEY.md §2.2); here the hot path
+    (smoothing, SpMV, transfers) runs in f32 while only the outer
+    residual r = b - A x and the solution accumulate in f64.  This
+    reaches the BASELINE 1e-8 relative-residual target at f32 kernel
+    speed; requires x64 enabled.
 
     Returns (x (f64), relative_residual, outer_iterations).
     """

@@ -1,10 +1,10 @@
-"""Core fixed-shape data structures for the TPU-native Gravo MG framework.
+"""Core fixed-shape data structures for the Gravo MG framework.
 
 Design stance (see SURVEY.md §7): every irregular structure in the reference
 (`Eigen::SparseMatrix` graphs, prolongation operators with <=3 nnz/row,
 ragged triangle association lists) becomes a fixed-shape, masked, padded
 array ("ELL"-style layout).  This is what lets every stage trace once under
-`jax.jit`, vectorize on the VPU, and feed the MXU with static shapes.
+`jax.jit` and vectorize with static shapes.
 
 Reference type vocabulary being replaced (cited for parity):
   - ``EdgeMatrix`` = ``Eigen::SparseMatrix<double>`` (reference
@@ -132,8 +132,8 @@ class Restriction(NamedTuple):
     """Gather-form U^T: children-ELL table per coarse vertex.
 
     Restriction is U^T in the Gravo MG method (reference `README.md:1`;
-    never materialized there).  A scatter-form `out.at[cols].add` lowers
-    to sort-based code on TPU; this precomputed transpose makes
+    never materialized there).  Instead of a scatter-form
+    `out.at[cols].add`, this precomputed transpose makes
     restriction a fixed-shape gather + row-reduce exactly like SpMV:
         coarse[c] = sum_j weights[c, j] * fine[rows[c, j]].
 
@@ -213,7 +213,7 @@ class EllOperator(NamedTuple):
 class TriangleSet(NamedTuple):
     """All triangles of a coarse graph + per-vertex association lists.
 
-    TPU-native replacement for the reference's
+    Fixed-shape replacement for the reference's
     ``vector<TriangleWithNormal>`` + ``vector<vector<size_t>>``
     (`src/multigrid.cpp:209-263`).  Triangles are enumerated in the same
     lexicographic (v0 < v1 < v2) order as the reference's nested

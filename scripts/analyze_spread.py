@@ -5,7 +5,7 @@ sizes, compute how many width-W windows (greedy first-fit, the same
 assignment rule as ops/blockdense.py) cover each block's columns and
 how many entries escape.  This replaces the fixed window0 = 3*blk
 heuristic with measured geometry: the round-2 level-0 operator streamed
-a ~2%-dense 1.1 GB window matrix per matvec (VERDICT r2 Weak #1); the
+a ~2%-dense 1.1 GB window matrix per matvec; the
 fix starts with knowing the real spread.
 
 Runs on the CPU backend (structure only, no timing).

@@ -1,4 +1,4 @@
-"""BASELINE workload configs 1/2/3/5 on the TPU (config 4 = bench.py).
+"""BASELINE workload configs 1/2/3/5 on the accelerator (config 4 = bench.py).
 
   c1_sphere5k    5k sphere, 2-level, Jacobi, MG-PCG to 1e-8
   c2_mesh35k     35k surface, 3-level, Chebyshev V-cycle + MG-PCG
@@ -7,11 +7,11 @@
   c5_batch64     64 RHS vmapped V-cycles on one hierarchy (the batched
                  shape-collection pattern)
 
-One JSON line per config.  Timings are wall times of single-launch
-jitted programs with a D2H completion barrier, measured on the second
-(warm) call; the constant ~48 ms dispatch overhead of this runtime's
-post-sync mode is included and noted (see bench.py for the slope
-protocol used for the headline metric).
+One JSON line per config on stdout, after a header line naming the
+device.  Timings are wall times of single-launch jitted programs ending
+in ``block_until_ready``, measured on the second (warm) call.  A config
+that fails or runs out of budget prints an error row and makes the exit
+code non-zero.
 
 Usage: python scripts/bench_configs.py [config ...]
 """
@@ -28,7 +28,7 @@ import numpy as np
 import jax
 
 # GRAVOMG_SMOKE=1 shrinks every config ~20x: validates the script
-# end-to-end (CPU or TPU) without the full-size compile budget.
+# end-to-end on any backend without the full-size compile budget.
 SMOKE = os.environ.get("GRAVOMG_SMOKE") == "1"
 
 
@@ -36,14 +36,9 @@ def sz(n):
     return max(2000, n // 20) if SMOKE else n
 
 
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".bench_cache", "xla"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 import jax.numpy as jnp
 import gravomg_tpu as g
+from gravomg_tpu.compile_cache import compile_cache_dir, enable_compile_cache
 from gravomg_tpu.geometry.meshes import icosphere, torus_points
 from gravomg_tpu.geometry.order import morton_order
 from gravomg_tpu.geometry.gridknn import grid_knn_graph_nosync
@@ -52,20 +47,8 @@ from gravomg_tpu.hierarchy_static import (build_hierarchy_device,
                                           compact_solver)
 
 
-_ARTIFACT = None if SMOKE else os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "CONFIGS_TPU.json")
-
-# Crash-safety (VERDICT r4 weak #4: a dead end-of-round run clobbered a
-# complete committed artifact with a 4-line truncation): rows stream to
-# a .partial sidecar; the committed artifact is only replaced -- then
-# atomically -- when the sweep finishes every requested config (error
-# rows count as finished; a SIGKILL mid-sweep leaves it untouched).
-_ROWS: list = []
-
-# Same budget discipline as bench.py: every config checks the remaining
-# wall budget before starting; an exhausted budget emits a "skipped"
-# row instead of dying rc=124 with a partial artifact.
+# Every config checks the remaining wall budget before starting; an
+# exhausted budget emits an error row instead of dying mid-config.
 BUDGET_S = float(os.environ.get("GRAVOMG_BENCH_BUDGET_S", "7200"))
 _T0 = time.monotonic()
 
@@ -75,60 +58,31 @@ def _remaining() -> float:
 
 
 def _xla_cache_entries() -> int:
-    """Persistent-cache entry count: every row records the cache state
-    its cold numbers were measured under (VERDICT r4 weak #5 -- 6x
-    run-to-run cold-build variance is meaningless without it)."""
+    """Persistent-cache entry count: every run records the cache state
+    its cold numbers were measured under."""
     try:
-        return len(os.listdir(os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".bench_cache", "xla")))
+        return len(os.listdir(compile_cache_dir()))
     except OSError:
         return 0
 
 
 def emit(obj):
-    line = json.dumps(obj)
-    print(line, flush=True)
-    _ROWS.append(line)
-    if _ARTIFACT is not None:
-        with open(_ARTIFACT + ".partial", "a") as f:
-            f.write(line + "\n")
-
-
-def finalize_artifact():
-    if _ARTIFACT is None:
-        return
-    tmp = _ARTIFACT + ".tmp"
-    with open(tmp, "w") as f:
-        f.write("\n".join(_ROWS) + "\n")
-    os.replace(tmp, _ARTIFACT)
-    try:
-        os.remove(_ARTIFACT + ".partial")
-    except OSError:
-        pass
+    print(json.dumps(obj), flush=True)
 
 
 def timed_call(fn, *args):
     """(warm_seconds, result): second call of a jitted single-launch
-    program, D2H barrier included."""
-    out = fn(*args)
-    jax.tree_util.tree_map(
-        lambda a: float(jnp.sum(jnp.ravel(a)[:1].astype(jnp.float32))),
-        out)
+    program, up to ``block_until_ready``."""
+    jax.block_until_ready(fn(*args))
     t0 = time.perf_counter()
-    out = fn(*args)
-    jax.tree_util.tree_map(
-        lambda a: float(jnp.sum(jnp.ravel(a)[:1].astype(jnp.float32))),
-        out)
+    out = jax.block_until_ready(fn(*args))
     return time.perf_counter() - t0, out
 
 
-def pipeline(pts, k, cfg, attach=True, keep_h=False, use_pallas=None,
-             alpha="auto"):
+def pipeline(pts, k, cfg, attach=True, keep_h=False, alpha="auto"):
     """Build graph -> operator -> hierarchy -> compacted fast solver.
 
-    HBM hygiene (the single 16 GB worker dies if configs pin unused
-    structures): the uncompacted build hierarchy is dropped unless
+    Device-memory hygiene: the uncompacted build hierarchy is dropped unless
     ``keep_h`` (its padded per-level arrays pin GBs at 100k+; only the
     hierarchy-reuse config needs it), and fast-form attachment is
     skipped for configs that never run the single-RHS hot path.
@@ -136,7 +90,7 @@ def pipeline(pts, k, cfg, attach=True, keep_h=False, use_pallas=None,
     pts = pts[morton_order(pts)].astype(np.float32)
     graph, short = grid_knn_graph_nosync(pts, k, margin=2.4)
     # alpha="auto": a fixed screening shift falls below f32 resolution
-    # as density grows (the 1M divergence, PROGRESS round-3 notes).
+    # as density grows (apps/poisson.py).
     # Callables (e.g. apps.spectral.spectral_alpha) pick the shift from
     # the built graph -- the eigensolver needs alpha ~ lam_1, not the
     # Poisson-tuned auto value.
@@ -145,8 +99,7 @@ def pipeline(pts, k, cfg, attach=True, keep_h=False, use_pallas=None,
     spd, mass = g.screened_poisson_operator(graph, alpha=alpha)
     build_kw = {}
     t0 = time.perf_counter()
-    h, diags = build_hierarchy_device(graph, spd, cfg)
-    probe = float(jnp.sum(h.solver.levels[-1].op.diag))
+    h, diags = jax.block_until_ready(build_hierarchy_device(graph, spd, cfg))
     t_build = time.perf_counter() - t0
     assert not bool(short)
     try:
@@ -159,29 +112,26 @@ def pipeline(pts, k, cfg, attach=True, keep_h=False, use_pallas=None,
         from gravomg_tpu.config import DEFAULT_CAPS
         build_kw = dict(caps=DEFAULT_CAPS.escalated(2))
         t0 = time.perf_counter()
-        h, diags = build_hierarchy_device(graph, spd, cfg, **build_kw)
-        probe = float(jnp.sum(h.solver.levels[-1].op.diag))
+        h, diags = jax.block_until_ready(
+            build_hierarchy_device(graph, spd, cfg, **build_kw))
         t_build = time.perf_counter() - t0
         check_diagnostics(diags)
-    # Warm rebuild: the first build's wall time is dominated by the
-    # remote compile service (~15-30 s per fresh shape -- 238 s for a
-    # 5k cloud in the cold pass), which says nothing about the build
-    # itself.  Every shape is now cached in-process, so a second build
-    # is the honest per-mesh hierarchy cost (the quantity BASELINE's
-    # "hierarchy construction" target tracks; bench.py separates the
-    # two the same way).
+    # Warm rebuild: the first build's wall time is dominated by
+    # compilation, which says nothing about the build itself.  Every
+    # shape is now cached in-process, so a second build is the per-mesh
+    # hierarchy cost (the quantity BASELINE's "hierarchy construction"
+    # target tracks; bench.py separates the two the same way).
     t0 = time.perf_counter()
-    h, diags = build_hierarchy_device(graph, spd, cfg, **build_kw)
-    probe = float(jnp.sum(h.solver.levels[-1].op.diag))  # noqa: F841
+    h, diags = jax.block_until_ready(
+        build_hierarchy_device(graph, spd, cfg, **build_kw))
     t_warm = time.perf_counter() - t0
     t_build = {"t_build_s": round(t_warm, 3),
                "t_build_cold_s": round(t_build, 3)}
-    # Same operator stack as the headline bench: bucketed slab kernels
+    # Same operator stack as the headline bench: bucketed slab forms
     # on the large levels, uniform block-dense on the rest.
     sol = compact_solver(h.solver, diags)
     if attach:
-        sol = g.attach_fast_operators(
-            g.attach_slab_operators(sol, use_pallas=use_pallas))
+        sol = g.attach_operators(sol)
     levels = [int(d.n_real) for d in diags]
     if not keep_h:
         h = None
@@ -232,10 +182,9 @@ def c3_heat170k():
     pts = torus_points(sz(170_000), seed=3)
     cfg = g.MultigridConfig(coarse_threshold=1000, smoother="chebyshev")
     # attach=False: the heat app refits its own operators on the ELL
-    # forms; slab/fast conversions would only pin HBM here.  The refit
-    # runs on the COMPACTED solver -- keeping the uncompacted build
-    # hierarchy alive at 170k was the likeliest cause of the round-3
-    # worker crash (several GB of padded per-level arrays).
+    # forms; slab/fast conversions would only pin device memory here.
+    # The refit runs on the COMPACTED solver -- the uncompacted build
+    # hierarchy holds several GB of padded per-level arrays at 170k.
     graph, spd, h, sol, t_build, levels = pipeline(pts, 16, cfg,
                                                    attach=False)
     from gravomg_tpu.apps.heat import heat_geodesics
@@ -251,10 +200,8 @@ def c5_batch64():
     pts = torus_points(sz(20_000), seed=4)
     cfg = g.MultigridConfig(coarse_threshold=600, smoother="chebyshev")
     rng = np.random.default_rng(2)
-    # Same operator stack as the headline bench, incl. Pallas slab
-    # kernels under vmap -- verified safe by scripts/repro_vmap_pallas.py
-    # (all stages ok; the round-3 'c5 crash' was collateral of c3's
-    # watchdog death earlier in the same process).
+    # Same operator stack as the headline bench (vmap runs the ELL
+    # forms: the attached forms serve 1-D vectors only).
     graph, spd, h, sol, t_build, levels = pipeline(pts, 12, cfg)
     bs = jnp.asarray(rng.normal(size=(64, pts.shape[0])), jnp.float32)
 
@@ -305,8 +252,8 @@ def c5b_meshes64():
         assert not bool(short)
         spd, mass = g.screened_poisson_operator(graph, alpha="auto")
         t0 = time.perf_counter()
-        h, diags = build_hierarchy_device(graph, spd, cfg)
-        float(jnp.sum(h.solver.levels[-1].op.diag))    # D2H barrier
+        h, diags = jax.block_until_ready(
+            build_hierarchy_device(graph, spd, cfg))
         t_build += time.perf_counter() - t0
         check_diagnostics(diags)
         solvers.append(h.solver)
@@ -321,9 +268,7 @@ def c5b_meshes64():
         groups.setdefault(key, []).append(s)
     biggest = max(groups.values(), key=len)
     # Shared-geometry fast forms: without them the vmapped cycle runs
-    # batched ELL gathers (~7 ns/index) and the per-mesh loop pays the
-    # ~50 ms launch pathology per dispatch -- both sides measured 76+
-    # ms/mesh at 5k in the 2026-08-19 sweep.
+    # batched ELL gathers.
     biggest = attach_collection(biggest)
     assert stackable(biggest)
     hb = g.stack_solvers(biggest)
@@ -341,11 +286,10 @@ def c5b_meshes64():
     def one(hs, b):
         return g.v_cycle(hs, jnp.zeros_like(b), b, cfg)
 
-    _ = one(biggest[0], bs[0])
-    float(jnp.sum(_[:1]))
+    jax.block_until_ready(one(biggest[0], bs[0]))
     t0 = time.perf_counter()
     for i, s in enumerate(biggest):
-        float(jnp.sum(one(s, bs[i])[:1]))
+        jax.block_until_ready(one(s, bs[i]))
     t_loop = time.perf_counter() - t0
 
     emit({"config": "c5b_meshes64", "n": n, "meshes": nmesh,
@@ -375,9 +319,8 @@ def c6_spectral():
     graph, spd, h, sol, t_build, levels = pipeline(
         pts, 12, cfg, attach=False, alpha=spectral_alpha)
     t0 = time.perf_counter()
-    lams, vecs, res = laplace_eigs(graph, k=k, cfg=cfg, h=sol, iters=40,
-                                   tol=1e-5)
-    float(jnp.sum(vecs[:1, :1]))
+    lams, vecs, res = jax.block_until_ready(
+        laplace_eigs(graph, k=k, cfg=cfg, h=sol, iters=40, tol=1e-5))
     t = time.perf_counter() - t0
     emit({"config": "c6_spectral", "n": n, "k": k,
           **t_build,
@@ -391,45 +334,28 @@ ALL = {"c1": c1_sphere5k, "c2": c2_mesh35k, "c3": c3_heat170k,
        "c5": c5_batch64, "c5b": c5b_meshes64, "c6": c6_spectral}
 
 if __name__ == "__main__":
+    enable_compile_cache()
     names = sys.argv[1:] or list(ALL)
-    carried = []
-    if _ARTIFACT is not None and names != list(ALL):
-        # Partial run: carry over the committed rows for configs NOT
-        # being re-measured, so finalize still writes a complete file.
-        try:
-            seen = set()
-            for line in open(_ARTIFACT):
-                row = json.loads(line)
-                cfg_name = str(row.get("config", ""))
-                # Rows are emitted under long names (c1_sphere5k);
-                # match on the short key so re-measured configs are
-                # dropped instead of duplicated, and dedupe (keep the
-                # first = most recent committed row per config).
-                key = cfg_name.split("_")[0]
-                if (key in names or cfg_name in ("header", "footer")
-                        or cfg_name in seen):
-                    continue
-                seen.add(cfg_name)
-                carried.append(line.strip())
-        except (OSError, ValueError):
-            pass
-    if _ARTIFACT is not None:
-        open(_ARTIFACT + ".partial", "w").close()
-    emit({"config": "header", "device": jax.devices()[0].platform,
+    dev = jax.devices()
+    emit({"config": "header", "device": {"platform": dev[0].platform,
+                                         "kind": dev[0].device_kind,
+                                         "count": len(dev)},
           "when": time.strftime("%Y-%m-%d %H:%M:%S"),
           "budget_s": BUDGET_S,
           "xla_cache_entries": _xla_cache_entries()})
-    _ROWS.extend(carried)
+    failed = []
     for name in names:
         if _remaining() < 120:
             emit({"config": name,
-                  "skipped": f"budget exhausted ({BUDGET_S:.0f}s)"})
+                  "error": f"budget exhausted ({BUDGET_S:.0f}s)"})
+            failed.append(name)
             continue
         try:
             ALL[name]()
         except Exception as e:  # noqa: BLE001
             emit({"config": name, "error": f"{type(e).__name__}: {e}"})
+            failed.append(name)
     emit({"config": "footer",
           "xla_cache_entries_at_end": _xla_cache_entries(),
-          "wall_s": round(time.monotonic() - _T0, 1)})
-    finalize_artifact()
+          "wall_s": round(time.monotonic() - _T0, 1), "failed": failed})
+    sys.exit(1 if failed else 0)

@@ -2,7 +2,7 @@
 
 Loads the npz on CPU (NumPy/SciPy only -- no JAX, no device), checks
 hierarchy invariants, and runs exact f64 V-cycles to separate "the
-hierarchy is bad" from "the TPU fast-operator path is bad" when a
+hierarchy is bad" from "the device fast-operator path is bad" when a
 bench run reports a diverging residual.
 
 Checks per level:

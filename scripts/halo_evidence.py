@@ -1,4 +1,4 @@
-"""Halo-exchange plan evidence at scale (VERDICT r5 #5).
+"""Halo-exchange plan evidence at scale.
 
 The halo path's claim -- per-matvec communication is O(edge-cut), not
 O(V) -- only bites at scale: the committed dryrun fixture (2562 rows
@@ -7,7 +7,7 @@ size and reported halo_frac 1.022.  This script builds the REAL
 exchange plans (``parallel/halo.py::build_halo_ell``, the exact code
 the sharded solver runs) for every level of a >=200k hierarchy,
 entirely host-side (csrc exact-greedy hierarchy + SciPy Galerkin
-products; no TPU, no multi-chip hardware needed -- the plan is a pure
+products; no accelerator needed -- the plan is a pure
 function of the concrete column tables), and writes the per-level
 halo_frac / bytes-per-matvec table the O(V^(2/3)) claim stands on.
 

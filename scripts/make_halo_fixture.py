@@ -1,13 +1,13 @@
 """Generate assets/halo_hierarchy.npz -- the dryrun's halo-path fixture.
 
-VERDICT r4 #5: the old 2.5k entry fixture gives ~320 rows/device on the
+The old 2.5k entry fixture gives ~320 rows/device on the
 8-device dryrun mesh, where the edge cut IS the shard (halo_frac 1.022)
 -- no scale for the O(edge-cut) exchange to show its bound.  This
 fixture is a 24k torus hierarchy (3k rows/device), where the measured
 fine-level halo_frac sits well under 0.25 (tests/test_halo.py pins
 <0.25 already at 6k; scripts/halo_evidence.py measures 0.069 at 50k).
 
-Runs entirely on CPU JAX (no TPU needed); regenerate with
+Runs entirely on CPU JAX (no accelerator needed); regenerate with
   JAX_PLATFORMS=cpu python scripts/make_halo_fixture.py
 """
 

@@ -1,7 +1,7 @@
 """Measure window-coverage statistics of the build operators at scale.
 
 For the 1M north-star build the gather-free sampling/parents operators
-must fit HBM: M is rpad * nww * itemsize bytes, so the window geometry
+must fit device memory: M is rpad * nww * itemsize bytes, so the window geometry
 has to be chosen from the measured per-block column spread, not guessed.
 This probe builds the fine graph and the conflict ELL at N, then for
 candidate (block, window0, window, nw) geometries counts, per block, how
@@ -11,17 +11,14 @@ materializing M (counts only).  Prints coverage and projected M bytes.
 Usage: python scripts/probe_1m_spread.py [N]
 """
 
+import os
 import sys
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  "/root/repo/.bench_cache/xla")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import gravomg_tpu as g
 from gravomg_tpu.geometry.gridknn import grid_knn_graph_nosync
 from gravomg_tpu.geometry.meshes import torus_points

@@ -2,10 +2,10 @@
 
 Builds only the level-0 operator (graph + Laplacian, no hierarchy) and
 reports, per candidate (BLK, W): total window slabs under greedy
-first-fit cover, the implied M bytes, and the streaming time at v5e HBM
-rate -- the data behind the slab-ELL design in ops/pallas_blockdense.py.
+first-fit cover and the implied M bytes -- the data behind the slab
+design in ops/slab.py.
 
-Usage: JAX_PLATFORMS=cpu PYTHONPATH=/root/repo python scripts/slab_totals.py [n] [order]
+Usage: JAX_PLATFORMS=cpu python scripts/slab_totals.py [n]
 """
 
 import os
@@ -61,8 +61,7 @@ for blk in (8, 16, 32, 64):
         counts = slab_cover(cols, valid, blk, w)
         total = int(counts.sum())
         mbytes = total * blk * w * 4
-        ms = mbytes / 819e9 * 1e3
         print(f" blk={blk:3d} W={w}: slabs total={total} "
               f"mean={counts.mean():.2f}/blk p99={np.percentile(counts, 99):.0f} "
               f"max={counts.max()} M={mbytes/1e6:.0f}MB "
-              f"stream={ms:.3f}ms density={nnz*4/mbytes*100:.1f}%")
+              f"density={nnz*4/mbytes*100:.1f}%")

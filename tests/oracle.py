@@ -2,8 +2,8 @@
 
 An independent re-implementation (from the behavioral contract documented
 in SURVEY.md §2.1, quirks included) of the reference pipeline
-`/root/reference/src/{sampling,multigrid}.cpp`, used as the golden
-baseline for exact-compat tests of the vectorized TPU implementation.
+reference `src/{sampling,multigrid}.cpp`, used as the golden
+baseline for exact-compat tests of the vectorized implementation.
 
 It consumes the same padded ELL graph representation as the library
 (neighbors ascending per row, INVALID_INDEX padding, no self-loops) so

@@ -1,20 +1,20 @@
 """Cap-adequacy regression tests for the device builder's static plan.
 
-The BENCH_r04 regression: cap defaults were edited in
+The regression this guards: cap defaults were edited in
 hierarchy_static.py without re-validating at scale, and the shipped
 default config could no longer build the 1M north-star hierarchy
 (small-scale tests and the dryrun stayed green -- nothing exercised cap
 adequacy at scale).  These tests close that hole: a CPU-only structural
 audit (scripts/check_caps.py; exact-greedy csrc hierarchy + SciPy
-Galerkin products, no TPU and no large XLA compile) measures the TRUE
+Galerkin products, no accelerator and no large XLA compile) measures the TRUE
 per-level requirements at >= 500k vertices and asserts that
 ``DEFAULT_CAPS`` + ``plan_levels`` + the per-level adaptive rules cover
 them with margin.  Editing a cap default without re-validating now
 fails here, not in the end-of-round bench.
 
 Ground truth anchoring: the audit's greedy-hierarchy profile was
-validated against the device (random-priority MIS) hierarchy at 1M on
-TPU (scripts/diag_build1m.py, 2026-08-20): y_req 17-27 vs 18-27,
+validated against the device (random-priority MIS) hierarchy at 1M
+(scripts/diag_build1m.py, scripts/diag_build1m_out.json): y_req 17-27 vs 18-27,
 rap off-degree 34-46 vs 36-46 -- the two track within ~2 counts, which
 the margins here absorb.
 """
@@ -74,7 +74,7 @@ def test_default_caps_cover_500k(audit_500k):
 
 
 def test_rap_y_width_tiering_pins_r04_regression():
-    """The exact BENCH_r04 failure shape: a 70976-row mid level needed
+    """The exact 1M default-build failure shape: a 70976-row mid level needed
     y_req=25; the old one-threshold rule gave it 24."""
     assert rap_y_width_for_level(70976, 40) >= 25 + 3
     # The finest level keeps the narrow default (sort volume there is
@@ -96,8 +96,8 @@ def test_escalated_caps_strictly_widen():
 
 def test_builders_share_cap_source():
     """build_hierarchy_device resolves defaults from DEFAULT_CAPS: a
-    custom BuildCaps must reach the plan (VERDICT r4 #7: cap defaults
-    drifted because hierarchy_static.py carried its own literals)."""
+    custom BuildCaps must reach the plan (cap defaults once drifted
+    because hierarchy_static.py carried its own literals)."""
     import inspect
     from gravomg_tpu.hierarchy_static import build_hierarchy_device
     sig = inspect.signature(build_hierarchy_device)

@@ -1,4 +1,4 @@
-"""Exact-compat tests: vectorized TPU pipeline vs the sequential NumPy
+"""Exact-compat tests: vectorized pipeline vs the sequential NumPy
 oracle (reference semantics, SURVEY.md §2.1), at f64.
 
 The north-star requirement is prolongation weights matching the

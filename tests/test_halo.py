@@ -1,6 +1,6 @@
 """Halo-decomposed sharded SpMV + solve (parallel/halo.py).
 
-VERDICT r3 task 5: the sharded matvec must move O(edge-cut) halo
+The sharded matvec must move O(edge-cut) halo
 segments per device instead of all-gathering the full vector.  Asserts
 (a) exactness of every halo matvec against the unsharded forms,
 (b) a converged halo-sharded MG-PCG solve, and (c) the communication

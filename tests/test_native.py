@@ -2,7 +2,7 @@
 
 The C++ build is the measured CPU baseline for the BASELINE
 "hierarchy construction" metric, so it must reproduce the sequential
-reference semantics exactly (same checks the TPU pipeline passes in
+reference semantics exactly (same checks the device pipeline passes in
 test_compat.py, here against the multi-level C++ driver).
 """
 

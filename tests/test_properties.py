@@ -311,9 +311,9 @@ def test_chained_sampling_in_builder(rng):
 
 
 def test_priority_bitcast_distinct_beyond_f32_ints():
-    """MIS priorities must stay pairwise distinct above 2^24 vertices
-    (ADVICE r2): the int32->f32 bitcast (offset 2^23) is strictly
-    monotone and collision-free where a plain float cast collapses."""
+    """MIS priorities must stay pairwise distinct above 2^24 vertices:
+    the int32->f32 bitcast (offset 2^23) is strictly monotone and
+    collision-free where a plain float cast collapses."""
     import jax
     # Values straddling 2^24 where float32 cast collides.
     vals = np.array([2**24 - 2, 2**24 - 1, 2**24, 2**24 + 1, 2**24 + 2,

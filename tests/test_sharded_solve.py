@@ -1,6 +1,6 @@
 """Full vertex-sharded MG-PCG solve on the 8-virtual-device mesh.
 
-VERDICT r2 task 8: every level's rows sharded (not just the finest),
+Every level's rows sharded (not just the finest),
 and a converged solve to 1e-8 -- not a single step.  Runs on the CPU
 backend with --xla_force_host_platform_device_count=8 (conftest).
 """

@@ -1,7 +1,6 @@
 """Bucketed variable-window (slab) operator tests: exactness vs the
-uniform block-dense form and the dense oracle, V-cycle integration,
-and the Pallas kernel in interpreter mode (ops/slab.py,
-ops/pallas_blockdense.py)."""
+uniform block-dense form and the dense oracle, and V-cycle integration
+(ops/slab.py)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -45,7 +44,7 @@ def test_slab_matches_uniform_and_dense(rng):
 
     sop = slab_from_ell(jnp.asarray(cols), jnp.asarray(vals),
                         jnp.asarray(valid), nc, diag=jnp.asarray(diag),
-                        block=8, window=128, use_pallas=False)
+                        block=8, window=128)
     uop, ovf = blockdense_from_ell(jnp.asarray(cols), jnp.asarray(vals),
                                    jnp.asarray(valid), nc,
                                    diag=jnp.asarray(diag), block=8,
@@ -73,8 +72,7 @@ def test_slab_rectangular(rng):
     valid = np.ones((r, 3), bool)
     x = rng.normal(size=nc).astype(np.float32)
     sop = slab_from_ell(jnp.asarray(cols), jnp.asarray(vals),
-                        jnp.asarray(valid), nc, block=8, window=128,
-                        use_pallas=False)
+                        jnp.asarray(valid), nc, block=8, window=128)
     y_s = np.asarray(slab_matvec(sop, jnp.asarray(x)))
     y_d = _dense(cols, vals, valid, r, nc) @ x
     np.testing.assert_allclose(y_s, y_d, atol=1e-5 * np.abs(y_d).max())
@@ -101,24 +99,6 @@ def test_window_counts_aligned_cover(rng):
         assert counts[b] == n, b
 
 
-def test_slab_pallas_interpret(rng):
-    """Pallas kernel (interpret mode) matches the XLA bucket path."""
-    r = nc = 640
-    cols, vals, valid = _tailed_ell(rng, r=r, k=8, nc=nc)
-    x = rng.normal(size=nc).astype(np.float32)
-    sop = slab_from_ell(jnp.asarray(cols), jnp.asarray(vals),
-                        jnp.asarray(valid), nc, block=8, window=128,
-                        use_pallas=False)
-    from gravomg_tpu.ops.pallas_blockdense import blockdense_matvec_pallas
-    y_x = np.asarray(slab_matvec(sop, jnp.asarray(x), pallas=False))
-    parts = [np.asarray(blockdense_matvec_pallas(b, jnp.asarray(x),
-                                                 interpret=True))
-             for b in sop.buckets]
-    ycat = np.concatenate([p.reshape(-1, sop.block) for p in parts])
-    y_p = ycat[np.asarray(sop.inv_block_perm)].reshape(-1)[:r]
-    np.testing.assert_allclose(y_p, y_x, atol=1e-6 * np.abs(y_x).max())
-
-
 def test_slab_vcycle_matches_plain(rng):
     """A slab-attached hierarchy produces the same V-cycle (up to f32
     add order) and converges under FCG."""
@@ -139,8 +119,7 @@ def test_slab_vcycle_matches_plain(rng):
     b = jnp.asarray(np.random.default_rng(0).normal(size=4000),
                     jnp.float32)
     x0 = g.v_cycle(hc, jnp.zeros_like(b), b, cfg)
-    sol = g.attach_slab_operators(hc, block=8, window=128, min_rows=512,
-                                  use_pallas=False)
+    sol = g.attach_slab_operators(hc, block=8, window=128, min_rows=512)
     sol = g.attach_fast_operators(sol, block=64, window=128)
     assert any(lvl.banded is not None and hasattr(lvl.banded, "buckets")
                for lvl in sol.levels)
@@ -150,80 +129,3 @@ def test_slab_vcycle_matches_plain(rng):
     _, r2, it = g.mg_fcg(sol, b, cfg)
     assert float(r2) < cfg.tolerance
     assert int(it) < 25
-
-
-def test_mxu_slab_matches_uniform(rng):
-    """Transposed-tile MXU form (XLA fallback + interpret-mode Pallas)
-    matches the uniform operator."""
-    r = nc = 2000
-    cols, vals, valid = _tailed_ell(rng, r=r, k=10, nc=nc)
-    diag = rng.normal(size=r).astype(np.float32) + 5
-    x = rng.normal(size=nc).astype(np.float32)
-    sop = slab_from_ell(jnp.asarray(cols), jnp.asarray(vals),
-                        jnp.asarray(valid), nc, diag=jnp.asarray(diag),
-                        mxu=True, use_pallas=False)
-    assert sop.mxu and sop.block == 128
-    uop, ovf = blockdense_from_ell(jnp.asarray(cols), jnp.asarray(vals),
-                                   jnp.asarray(valid), nc,
-                                   diag=jnp.asarray(diag), block=8,
-                                   window=128, nw=14, escape_cap=8192,
-                                   window0=128)
-    assert not bool(ovf)
-    y_u = np.asarray(blockdense_matvec(uop, jnp.asarray(x)))
-    y_m = np.asarray(slab_matvec(sop, jnp.asarray(x)))
-    scale = np.abs(y_u).max()
-    np.testing.assert_allclose(y_m, y_u, atol=2e-6 * scale)
-
-    from gravomg_tpu.ops.pallas_blockdense import mxu_matvec_pallas
-    from gravomg_tpu.ops.slab import _bucket_escape
-    parts = []
-    for b in sop.buckets:
-        y = mxu_matvec_pallas(b.m, b.win_start // 128, jnp.asarray(x),
-                              b.m.shape[0] * 128, interpret=True)
-        parts.append(np.asarray(_bucket_escape(b, y, jnp.asarray(x)))
-                     .reshape(-1, 128))
-    ycat = np.concatenate(parts)
-    y_p = (ycat[np.asarray(sop.inv_block_perm)].reshape(-1)[:r]
-           + diag * x[:r])
-    np.testing.assert_allclose(y_p, y_u, atol=2e-6 * scale)
-
-
-def test_pick_group_satisfies_mosaic_blockspec_rules():
-    """Regression for the 1M launch fault: every auto-chosen group must
-    give a Mosaic-legal blocked out spec -- group divides nblk AND
-    (group % 8 == 0 or group == nblk)."""
-    from gravomg_tpu.ops.pallas_blockdense import pick_group
-
-    cases = [(n, bpb, bud)
-             for n in list(range(1, 21)) + [33, 69, 97, 276, 2208,
-                                            8200, 43003]
-             for bpb in (8 * 128 * 4, 256 * 1408 * 4, 2 * 65536)
-             for bud in (1 << 19, 1 << 20)]
-    for nblk, bytes_per_block, budget in cases:
-        gp = pick_group(nblk, bytes_per_block, budget)
-        assert nblk % gp == 0, (nblk, gp)
-        assert gp % 8 == 0 or gp == nblk, (nblk, gp)
-    # The shape that faulted the first 1M run (2208 blocks of (8, 128))
-    # must come out blocked, not whole-array (whole-array was the
-    # 22 MB scoped-VMEM OOM at 43k blocks).
-    gp = pick_group(2208, 8 * 128 * 4, 1 << 19)
-    assert gp % 8 == 0 and gp < 2208
-
-
-def test_pallas_whole_array_group_fallback(rng):
-    """nblk with no multiple-of-8 divisor exercises the group == nblk
-    fallback end-to-end (interpret mode)."""
-    r = nc = 328                       # 41 blocks of 8: 41 is prime
-    cols, vals, valid = _tailed_ell(rng, r=r, k=6, nc=nc)
-    x = rng.normal(size=nc).astype(np.float32)
-    bop, _overflow = blockdense_from_ell(
-        jnp.asarray(cols), jnp.asarray(vals), jnp.asarray(valid), nc,
-        block=8, window=128, align=128)
-    from gravomg_tpu.ops.pallas_blockdense import (blockdense_matvec_pallas,
-                                                   pick_group)
-    assert pick_group(41, bop.m.shape[1] * bop.m.shape[2] * 4,
-                      1 << 19) == 41
-    y_ref = np.asarray(blockdense_matvec(bop, jnp.asarray(x)))
-    y_p = np.asarray(blockdense_matvec_pallas(bop, jnp.asarray(x),
-                                              interpret=True))
-    np.testing.assert_allclose(y_p, y_ref, atol=1e-6 * np.abs(y_ref).max())

@@ -232,7 +232,7 @@ def test_mg_fcg_converges_like_pcg(rng):
 
 def test_mg_fcg_bf16_preconditioner(rng):
     """A bf16-cast V-cycle is a valid FCG preconditioner: the flexible
-    beta absorbs the rounding-induced nonsymmetry (task 4, VERDICT r2)
+    beta absorbs the rounding-induced nonsymmetry
     while CG's own matvec/residual stay f32.  Iterations must stay
     within ~1.5x of the f32-preconditioned run."""
     from gravomg_tpu.solve.vcycle import (attach_fast_operators,
@@ -402,8 +402,8 @@ def test_extract_coarse_edges_local_matches_baseline(rng):
 
 def test_galerkin_rap_2phase_wide_k_grouped(rng):
     """K > _AU_GROUP exercises the grouped phase-1 merge (the one-shot
-    3K+3-lane sort at build-time K=128 levels OOMed the TPU compile
-    helper); the grouped result must still equal the stream baseline,
+    3K+3-lane sort at build-time K=128 levels ran its compile out of
+    memory); the grouped result must still equal the stream baseline,
     chunked or not."""
     from gravomg_tpu.solve.rap2 import _AU_GROUP, galerkin_rap_2phase
     op, dense = _random_ell_spd(rng, n=220, k=70)
@@ -425,8 +425,7 @@ def test_galerkin_rap_2phase_wide_k_grouped(rng):
 
 
 def test_default_chebyshev_contraction_at_most_quarter(rng):
-    """Regression pin for the contraction-sweep defaults (VERDICT r3
-    task 6): with the shipped chebyshev_degree/chebyshev_ratio the
+    """Regression pin for the contraction-sweep defaults: with the shipped chebyshev_degree/chebyshev_ratio the
     stationary V-cycle must contract the residual by at least 4x per
     cycle (SWEEP_contraction_50k.json: rho=0.135 at degree 4 / ratio 16;
     the pre-sweep ratio-4 default measured 0.251)."""
@@ -444,8 +443,8 @@ def test_mg_solve_default_dispatch(rng):
     """mg_solve (the default solve) picks f32 MG-PCG below
     cfg.bf16_threshold and bf16-FCG at/above it, both converging to the
     1e-8 target with the bf16 path within 1.5x of f32 iterations
-    (VERDICT r3 task 4; the 1M scale evidence lives in the bench
-    artifact, this pins the dispatch contract)."""
+    (the 1M scale evidence comes from chip_smoke.py; this pins the
+    dispatch contract)."""
     import dataclasses
     from gravomg_tpu.solve.vcycle import attach_fast_operators
     h, cfg, spd = _sphere_hierarchy(rng, smoother="chebyshev")
@@ -468,8 +467,7 @@ def test_vcycle_x0_zero_bit_exact(rng):
     an exactly-zero initial guess (A 0 = 0): the result must be
     BIT-identical to the plain cycle, for both smoother families.
     Every coarse correction and every preconditioner application take
-    this path (VERDICT r5 #3: one fewer full matvec per level per
-    cycle)."""
+    this path (one fewer full matvec per level per cycle)."""
     for smoother in ("chebyshev", "jacobi"):
         h, cfg, spd = _sphere_hierarchy(rng, smoother=smoother)
         b = jnp.asarray(rng.normal(size=spd.num_vertices))
